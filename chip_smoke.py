@@ -1,20 +1,33 @@
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises, so the exit code is not 0):
+Phases (each prints lines; any failure raises, so the exit code is not 0):
   1. card name and power limit (nvidia-smi), torch/CUDA versions, device setup;
   2. build the CUDA kernels from ``highresnet_tpu_torch/csrc``;
-  3. the pair-pack kernel against its plain PyTorch version on the card:
+  3. [pack] the pair-pack kernel (K1) against its plain PyTorch version:
      ``torch.equal`` at the headline shape (f32, bf16) and at odd shapes, and
      both timed with CUDA events;
-  4. the predict CLI end to end on a synthetic 16-view 128 px dataset with
-     the full-width network of configs/config.json and seeded random
-     weights; the kernel's launch count over that run; the first scene's SR
-     and score against the port's CPU path;
-  5. HRNet forward time at the bench headline (batch 8, 16 views, 128 px,
-     f32), with the kernel and with the plain pack.
-Then one JSON line with the kernels, and last the device JSON line.
+  4. [unpack] the unpack kernel (K2) the same way at the first-round training
+     shape and at odd view counts, then gradients through ``PackPairs`` on
+     the card against the CPU plain version's autograd, bit for bit;
+  5. [warp] the Lanczos warp kernel (K3) against its plain version (limit
+     1e-5) at the training shape and two odd shapes, zero shift, gradients
+     of ``LanczosShift`` against the plain autograd, and both timed;
+  6. [predict] the predict CLI end to end on a synthetic 16-view 128 px
+     dataset with the full-width network of configs/config.json and seeded
+     random weights; K1's launches in that run; the first scene's SR and
+     score against the port's CPU path;
+  7. [forward] HRNet forward time at the bench headline (batch 8, 16 views,
+     128 px, f32), with the kernel and with the plain pack;
+  8. [train] the train CLI end to end on a synthetic 8-view 128 px dataset
+     at the full width of configs/config.json with the fused warp on; the
+     launches of K1, K2 and K3 in that run against the count its steps and
+     val forwards imply; a finite loss; ``best/HRNet.pth`` served by the
+     predict CLI; one step on the GPU against the port's CPU path (dropout
+     off); the train step timed with the kernels and with the plain versions.
+Then one JSON line with the kernels (``launches`` sums the predict and train
+runs), the card line again, and last the device JSON line.
 Needs CUDA; it imports nothing of JAX.
 """
 
@@ -34,8 +47,13 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 HEADLINE = dict(batch=8, views=16, size=128)
+TRAIN = dict(views=8, size=128, scenes_per_channel=9, max_steps=4)  # 16 train scenes: 2 batches of 8
 SR_RTOL = 1e-4  # GPU vs CPU SR: max |diff| / max |cpu|
 SCORE_ATOL_DB = 0.01  # the repo's parity contract
+WARP_ATOL = 1e-5  # K3 vs its plain version on [0, 1] images
+ZERO_SHIFT_ATOL = 1e-6  # a zero shift returns the image
+STEP_LOSS_RTOL = 1e-4  # one train step, GPU vs CPU port: loss
+STEP_GRAD_NORM_RTOL = 1e-3  # and the gradient norm (f32, TF32 off, other conv algorithms)
 
 
 def cuda_times_ms(fn, iters: int, warmup: int) -> list[float]:
@@ -88,8 +106,102 @@ def phase_pack(fusion, card: str) -> dict:
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
 
 
-def phase_predict(fusion, card: str) -> int:
-    """The predict CLI end to end; returns the kernel's launch count in it."""
+def reset_counts(fusion, lanczos_fused) -> None:
+    for k in fusion.LAUNCHES:
+        fusion.LAUNCHES[k] = 0
+    lanczos_fused.LAUNCHES = 0
+
+
+def read_counts(fusion, lanczos_fused) -> dict:
+    return {**fusion.LAUNCHES, "lanczos": lanczos_fused.LAUNCHES}
+
+
+def phase_unpack(fusion, card: str) -> dict:
+    """K2 against unpack_pairs_ref bit for bit; PackPairs gradients on the
+    card against the CPU plain version's autograd."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    # (B, L, 2C, H, W): the cotangent of an L-view pack is (B, L//2, 2C, H, W)
+    first_round = (8, TRAIN["views"], 128, 64, 64)
+    cases = [(first_round, torch.float32), (first_round, torch.bfloat16),
+             ((2, 5, 6, 7, 5), torch.float32), ((3, 3, 2, 3, 3), torch.bfloat16)]
+    max_err = 0.0
+    for (b, l, c2, h, w), dtype in cases:
+        cot = torch.randn((b, l // 2, c2, h, w), generator=g, device="cuda").to(dtype)
+        got, want = fusion.unpack_pairs_cuda(cot, l), fusion.unpack_pairs_ref(cot, l)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"unpack_pairs_cuda != unpack_pairs_ref at L={l} {cot.shape} {dtype}")
+        max_err = max(max_err, (got.float() - want.float()).abs().max().item())
+        print(f"[unpack] torch.equal(kernel, plain) at L={l}, cotangent {tuple(cot.shape)} {dtype}: True")
+
+    for shape in ((8, 8, 64, 64, 64), (2, 5, 3, 7, 5), (1, 3, 4, 5, 5)):
+        x = torch.randn(shape, generator=g, device="cuda", requires_grad=True)
+        cot = torch.randn((shape[0], shape[1] // 2, 2 * shape[2], *shape[3:]), generator=g,
+                          device="cuda")
+        before = fusion.LAUNCHES["unpack"]
+        (gx,) = torch.autograd.grad(fusion.pack_pairs(x), x, cot)
+        xc = x.detach().cpu().requires_grad_()
+        (want,) = torch.autograd.grad(fusion.pack_pairs(xc), xc, cot.cpu())
+        if fusion.LAUNCHES["unpack"] != before + 1 or not torch.equal(gx.cpu(), want):
+            raise AssertionError(f"PackPairs backward on CUDA != CPU autograd at {shape}")
+        print(f"[unpack] PackPairs grad on CUDA == CPU plain autograd at {shape}: True")
+
+    cot = torch.randn((8, TRAIN["views"] // 2, 128, 64, 64), generator=g, device="cuda")
+    moved = 2 * cot.numel() * cot.element_size()  # bytes read + bytes written
+    k_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_cuda(cot, 8), 20, 3))
+    p_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_ref(cot, 8), 20, 3))
+    print(f"[unpack] cotangent {tuple(cot.shape)} f32 -> L=8: kernel {k_ms:.4f} ms "
+          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s); "
+          f"median of 20; {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase_warp(lanczos_fused, card: str) -> dict:
+    """K3 against lanczos_shift_ref; LanczosShift gradients against the
+    plain autograd; both timed."""
+    from highresnet_tpu_torch.ops.lanczos import lanczos_kernel, separable_pass
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    max_err = 0.0
+    for shape in ((8, 3 * 64, 3 * 64), (3, 17, 23), (2, 4, 9)):
+        img = torch.rand(shape, generator=g, device="cuda")
+        shift = torch.rand((shape[0], 2), generator=g, device="cuda") * 6 - 3
+        got = lanczos_fused.LanczosShift.apply(img, shift)
+        want = lanczos_fused.lanczos_shift_ref(img, shift)
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        print(f"[warp] {shape} shifts in ±3 px: max|kernel - plain| {err:.3e} (limit {WARP_ATOL})")
+        if not err <= WARP_ATOL:
+            raise AssertionError(f"lanczos kernel disagrees with its plain version at {shape}")
+
+        img.requires_grad_()
+        shift.requires_grad_()
+        cot = torch.randn(shape, generator=g, device="cuda")
+        got_g = torch.autograd.grad(lanczos_fused.LanczosShift.apply(img, shift), (img, shift), cot)
+        want_g = torch.autograd.grad(lanczos_fused.lanczos_shift_ref(img, shift), (img, shift), cot)
+        if not all(torch.equal(a, b) for a, b in zip(got_g, want_g)):
+            raise AssertionError(f"LanczosShift gradients differ from the plain autograd at {shape}")
+        print(f"[warp] {shape} LanczosShift grads (image, shift) == plain autograd: True")
+
+    img = torch.rand((8, 192, 192), generator=g, device="cuda")
+    zero = lanczos_fused.LanczosShift.apply(img, torch.zeros((8, 2), device="cuda"))
+    z_err = (zero - img).abs().max().item()
+    print(f"[warp] zero shift: max|out - img| {z_err:.3e} (limit {ZERO_SHIFT_ATOL})")
+    if not z_err <= ZERO_SHIFT_ATOL:
+        raise AssertionError("a zero shift does not return the image")
+
+    shift = torch.rand((8, 2), generator=g, device="cuda") * 6 - 3
+    ky, kx = (lanczos_kernel(shift[:, i]).contiguous() for i in (0, 1))
+    k_ms = statistics.median(cuda_times_ms(lambda: lanczos_fused.lanczos_shift_cuda(img, ky, kx), 20, 3))
+    p_ms = statistics.median(cuda_times_ms(lambda: separable_pass(img, ky, kx), 20, 3))
+    moved = 2 * img.numel() * img.element_size()
+    print(f"[warp] (8, 192, 192) f32 on given taps: kernel {k_ms:.4f} ms "
+          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms; median of 20; {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase_predict(fusion, lanczos_fused, card: str) -> dict:
+    """The predict CLI end to end; returns the kernel launch counts in it."""
     from highresnet_tpu_torch import load_config
     from highresnet_tpu_torch.cli import predict
     from highresnet_tpu_torch.data import collate, make_synthetic_dataset
@@ -114,18 +226,19 @@ def phase_predict(fusion, card: str) -> int:
         n_params = param_count(model)
         torch.save(model.state_dict(), os.path.join(run_dir, "HRNet.pth"))
 
-        fusion.LAUNCHES = 0
+        reset_counts(fusion, lanczos_fused)
         table = predict.main([
             "--config", cfg_path, "--checkpoint", run_dir,
             "--splits", "train", "val", "--device", "cuda",
         ])
-        launches = fusion.LAUNCHES
+        counts = read_counts(fusion, lanczos_fused)
+        launches = counts["pack"]
         scores = table["model"].astype(float).to_dict()
         rounds = int(np.log2(views))
         print(f"[predict] {len(scores)} scenes, {n_params} params, pack launches "
               f"{launches} (expected {rounds} per forward), scores {scores}")
-        if launches != rounds * len(scores):
-            raise AssertionError(f"expected {rounds * len(scores)} kernel launches, got {launches}")
+        if counts != {"pack": rounds * len(scores), "unpack": 0, "lanczos": 0}:
+            raise AssertionError(f"expected {rounds * len(scores)} pack launches only, got {counts}")
         if not all(np.isfinite(v) for v in scores.values()):
             raise AssertionError(f"non-finite scores: {scores}")
 
@@ -133,7 +246,7 @@ def phase_predict(fusion, card: str) -> int:
         gpu, cpu = Model(cfg, device="cuda"), Model(cfg, device="cpu")
         gpu.load_checkpoint(run_dir)
         cpu.load_checkpoint(run_dir)
-        before = fusion.LAUNCHES
+        before = dict(fusion.LAUNCHES)
         sr_cpu, score_cpu = cpu(collate([imset], views))
         if fusion.LAUNCHES != before:
             raise AssertionError("the CPU path launched the CUDA kernel")
@@ -150,7 +263,7 @@ def phase_predict(fusion, card: str) -> int:
             raise AssertionError("GPU and CPU paths of the port disagree")
         if abs(scores[imset.name] - score_gpu) > 1e-9:
             raise AssertionError("the CLI's score differs from a rerun on the same device")
-    return launches
+    return counts
 
 
 def phase_forward(card: str) -> None:
@@ -180,11 +293,125 @@ def phase_forward(card: str) -> None:
               f"{ms:.3f} ms/batch, {b / ms * 1e3:.1f} scenes/s (median of 10); {card}")
 
 
+def train_config(tmp: str) -> tuple[dict, str]:
+    """configs/config.json on a synthetic 8-view 128 px set, fused warp on."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.data import make_synthetic_dataset
+
+    root = make_synthetic_dataset(
+        os.path.join(tmp, "data"), n_scenes_per_channel=TRAIN["scenes_per_channel"],
+        n_views=TRAIN["views"], lr_size=TRAIN["size"], seed=0, splits=("train",),
+    )
+    cfg = load_config(str(REPO / "configs" / "config.json"))
+    cfg["paths"].update(prefix=root, checkpoint_dir=os.path.join(tmp, "runs"), tb_log_file_dir="")
+    cfg["training"].update(min_L=TRAIN["views"], n_views=TRAIN["views"], use_pallas_warp=True)
+    path = os.path.join(tmp, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def phase_train(fusion, lanczos_fused, card: str, tmp: str) -> dict:
+    """The train CLI end to end; returns the kernel launch counts in it."""
+    from highresnet_tpu_torch.cli import predict, train
+    from highresnet_tpu_torch.data import discover_scenes, train_val_split
+
+    cfg, cfg_path = train_config(tmp)
+    t = cfg["training"]
+    run_dir = os.path.join(tmp, "run")
+    reset_counts(fusion, lanczos_fused)
+    out = train.main(["--config", cfg_path, "--run-dir", run_dir,
+                      "--max-steps", str(TRAIN["max_steps"]), "--device", "cuda"])
+    counts = read_counts(fusion, lanczos_fused)
+
+    with open(os.path.join(run_dir, "latest.json")) as f:
+        epochs = json.load(f)["epoch"]
+    scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
+    _, val = train_val_split(scenes, t["val_proportion"], seed=1)
+    rounds = int(np.log2(TRAIN["views"]))
+    steps = TRAIN["max_steps"]
+    val_forwards = epochs * -(-len(val) // t["eval_batch_size"])
+    want = {"pack": rounds * (steps + val_forwards), "unpack": rounds * steps, "lanczos": steps}
+    print(f"[train] cli.train: {steps} steps, {epochs} epochs, {val_forwards} val forwards; "
+          f"launches {counts} (expected {want}); last epoch loss {out['train_loss']}, "
+          f"best score {out['best_score']}")
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != {want}")
+    if not (np.isfinite(out["train_loss"]) and np.isfinite(out["best_score"])):
+        raise AssertionError("non-finite train loss or val score")
+
+    table = predict.main(["--config", cfg_path, "--checkpoint", run_dir,
+                          "--splits", "val", "--device", "cuda"])
+    scores = table["model"].astype(float).to_dict()
+    print(f"[train] best/HRNet.pth served by cli.predict: scores {scores}")
+    if not scores or not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"cli.predict on the run dir gave {scores}")
+    return counts
+
+
+def _step_pieces(cfg: dict, device: str, batch):
+    from highresnet_tpu_torch.train.epoch import batch_to_device
+    from highresnet_tpu_torch.train.state import create_train_state
+    from highresnet_tpu_torch.train.step import build_train_step
+
+    state = create_train_state(cfg, device, torch.Generator().manual_seed(0))
+    state.shiftnet.dropout = 0.0
+    return state, build_train_step(cfg), batch_to_device(batch, torch.device(device))
+
+
+def phase_train_step(card: str, tmp: str) -> None:
+    """One step from one init and batch on the GPU and on the port's CPU
+    path; then the step timed with the kernels and with the plain versions."""
+    from highresnet_tpu_torch.data import discover_scenes
+    from highresnet_tpu_torch.train.setup import build_train_loader
+
+    with open(os.path.join(tmp, "config.json")) as f:
+        cfg = json.load(f)
+    t = cfg["training"]
+    scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
+    batch = next(iter(build_train_loader(t, scenes, seed=0)))
+    metrics = {}
+    for device in ("cuda", "cpu"):
+        state, step, args = _step_pieces(cfg, device, batch)
+        _, m = step(state, *args)
+        metrics[device] = {k: v.item() for k, v in m.items()}
+    d_loss = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"]) / abs(metrics["cpu"]["loss"])
+    d_norm = abs(metrics["cuda"]["grad_norm"] - metrics["cpu"]["grad_norm"]) / metrics["cpu"]["grad_norm"]
+    print(f"[train] one step, GPU vs CPU port, dropout off: loss {metrics['cuda']['loss']:.7f} vs "
+          f"{metrics['cpu']['loss']:.7f} (rel {d_loss:.2e}, limit {STEP_LOSS_RTOL}), grad_norm "
+          f"{metrics['cuda']['grad_norm']:.7f} vs {metrics['cpu']['grad_norm']:.7f} "
+          f"(rel {d_norm:.2e}, limit {STEP_GRAD_NORM_RTOL})")
+    if d_loss > STEP_LOSS_RTOL or d_norm > STEP_GRAD_NORM_RTOL:
+        raise AssertionError("GPU and CPU train steps of the port disagree")
+
+    plain = json.loads(json.dumps(cfg))
+    plain["network"]["recursive"]["use_pallas_pack"] = False
+    plain["training"]["use_pallas_warp"] = False
+    runs = {"kernels": _step_pieces(cfg, "cuda", batch), "plain": _step_pieces(plain, "cuda", batch)}
+    times = {name: [] for name in runs}
+    for name, (state, step, args) in runs.items():
+        for _ in range(2):  # warm-up
+            step(state, *args)
+    for _ in range(10):  # interleaved, so drift hits both alike
+        for name, (state, step, args) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, *args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    b, l, p = t["batch_size"], t["min_L"], t["patch_size"]
+    for name, ts in times.items():
+        ms = statistics.median(ts)
+        print(f"[train] step batch {b} x {l} views x {p} px (SR {3 * p} px, register "
+              f"{t.get('register_size', 128)}), {name}: {ms:.3f} ms/step, "
+              f"{b / ms * 1e3:.1f} scenes/s (median of 10, host clock with sync); {card}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
     from highresnet_tpu_torch.kernels import build
-    from highresnet_tpu_torch.ops import fusion
+    from highresnet_tpu_torch.ops import fusion, lanczos_fused
     from highresnet_tpu_torch.runtime import setup_device
 
     card = card_line()
@@ -200,18 +427,30 @@ def main() -> None:
     how = "cached" if cached else f"built and loaded in {time.perf_counter() - t0:.1f} s"
     print(f"[build] {os.path.relpath(path, REPO)} {how}")
 
-    pack = phase_pack(fusion, card)
-    launches = phase_predict(fusion, card)
+    measured = {
+        "pack": phase_pack(fusion, card),
+        "unpack": phase_unpack(fusion, card),
+        "lanczos": phase_warp(lanczos_fused, card),
+    }
+    predicted = phase_predict(fusion, lanczos_fused, card)
     phase_forward(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        trained = phase_train(fusion, lanczos_fused, card, tmp)
+        phase_train_step(card, tmp)
 
+    sources = {
+        "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),
+        "unpack": ("unpack_pairs", "unpack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:104"),
+        "lanczos": ("lanczos_shift", "lanczos_shift.cu", "highresnet_tpu/ops/lanczos_pallas.py:39"),
+    }
     kernels = [{
-        "name": "pack_pairs",
+        "name": name,
         "route": "cuda",
-        "source": "highresnet_tpu_torch/csrc/pack_pairs.cu",
-        "replaces": "highresnet_tpu/ops/fusion_pallas.py:46",
-        "launches": launches,
-        **pack,
-    }]
+        "source": f"highresnet_tpu_torch/csrc/{src}",
+        "replaces": replaces,
+        "launches": predicted[key] + trained[key],
+        **measured[key],
+    } for key, (name, src, replaces) in sources.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

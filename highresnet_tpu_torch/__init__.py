@@ -3,11 +3,14 @@
 The JAX package ``highresnet_tpu`` is the reference; this package runs the
 same models on PyTorch, with the TPU's Pallas kernels rewritten by hand in
 CUDA for sm_90a. It imports ``torch`` and never JAX. Ported so far: the
-HRNet serving path (``cli.predict``).
+HRNet serving path (``cli.predict``) and the registered training path
+(``cli.train``).
 
-- ``models``   HRNet (encoder / recursive fusion / deconv decoder), weight IO.
-- ``ops``      fusion pair packing (CUDA kernel + plain twin), cPSNR metrics.
+- ``models``   HRNet, ShiftNet, f32-parameter layers, weight IO.
+- ``ops``      fusion pair pack/unpack and the Lanczos warp (CUDA kernels +
+               plain twins), losses, cPSNR metrics.
 - ``kernels``  nvcc build of ``csrc/*.cu`` and its ctypes binding.
+- ``train``    train state, steps, epoch loop, checkpoints, selection.
 - ``eval``     scene scoring, ESA-ratio table, submission writer.
 - ``runtime``  device setup (TF32 off, deterministic) and compute dtypes.
 """

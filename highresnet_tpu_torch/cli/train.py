@@ -1,0 +1,43 @@
+"""Train HRNet + ShiftNet for multi-frame super-resolution.
+
+Usage:
+    python -m highresnet_tpu_torch.cli.train --config configs/config.json \
+        [--run-dir D] [--max-steps N] [--device cuda]
+
+The same flags as ``highresnet_tpu.cli.train`` plus ``--device``: --run-dir
+creates or resumes a run directory, --max-steps stops after N optimizer
+steps. The run directory's ``best/HRNet.pth`` serves through
+``highresnet_tpu_torch.cli.predict --checkpoint <run dir>``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--config", default="configs/config.json", help="path of the config file")
+    parser.add_argument("--run-dir", default=None, help="checkpoint dir to create/resume")
+    parser.add_argument("--max-steps", type=int, default=None, help="stop after N optimizer steps")
+    parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+    args = parser.parse_args(argv)
+    if not os.path.isfile(args.config):
+        parser.error(f"config file not found: {args.config}")
+
+    from highresnet_tpu.config import load_config
+    from highresnet_tpu_torch.runtime import setup_device
+    from highresnet_tpu_torch.train.loop import train_and_get_best_model
+
+    config = load_config(args.config)
+    device = setup_device(args.device)
+    out = train_and_get_best_model(
+        config, max_steps=args.max_steps, run_dir=args.run_dir, device=device
+    )
+    print(f"best score: {out['best_score']:.4f}  (weights in {out['run_dir']})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

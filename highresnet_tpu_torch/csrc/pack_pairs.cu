@@ -11,61 +11,31 @@
 // Design. The TPU kernel existed because a 64+64 channel concat in NHWC
 // crossed the 128-lane tile. In NCHW each half of an output pair is one
 // contiguous C*H*W block, so the whole op is 2*B*half block copies of
-// block_bytes each and the kernel never looks at the element type. Block
-// (x, y) copies chunk x of copy y, where copy y = (b*half + j)*2 + side.
-// A thread moves 16 bytes per access on an aligned body and single bytes on
-// the tail; a copy whose source or destination is not 16-byte aligned (odd
-// C*H*W, odd element offsets) goes bytewise. No shared memory, no atomics:
-// every output byte is written by exactly one thread, so the result is
-// bit-exact and deterministic.
+// block_bytes each and the kernel never looks at the element type. Copy y
+// is (b*half + j)*2 + side; the copy loop is block_copy.cuh's, shared with
+// the unpack kernel. Every output byte is written by exactly one thread, so
+// the result is bit-exact and deterministic.
 //
 // Bound: memory bandwidth. It reads 2*half*C*H*W*e bytes per batch item and
 // writes the same. At the headline shape (B 8, L 16, C 64, 128x128, f32)
 // one call (the first fusion round) moves 0.54 GB each way.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "block_copy.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kVecPerThread = 4;
-constexpr int64_t kChunkBytes = int64_t(kThreads) * kVecPerThread * 16;  // 16 KiB
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(hrn::kCopyThreads)
 pack_pairs_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
                   int64_t n_copies, int64_t views, int64_t half,
                   int64_t block_bytes) {
-  const int64_t n_chunks = (block_bytes + kChunkBytes - 1) / kChunkBytes;
   for (int64_t copy = blockIdx.y; copy < n_copies; copy += gridDim.y) {
     const int64_t side = copy & 1;
     const int64_t pair = copy >> 1;  // b * half + j
     const int64_t b = pair / half;
     const int64_t j = pair - b * half;
     const int64_t view = side ? (2 * half - 1 - j) : j;
-    const uint8_t* src = x + (b * views + view) * block_bytes;
-    uint8_t* dst = out + copy * block_bytes;
-
-    for (int64_t chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-      const int64_t begin = chunk * kChunkBytes;
-      const int64_t rest = block_bytes - begin;
-      const int64_t len = rest < kChunkBytes ? rest : kChunkBytes;
-      const uint8_t* s = src + begin;
-      uint8_t* d = dst + begin;
-      int64_t done = 0;
-      if (((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d)) & 15) == 0) {
-        const int64_t n_vec = len / 16;
-        const uint4* s4 = reinterpret_cast<const uint4*>(s);
-        uint4* d4 = reinterpret_cast<uint4*>(d);
-#pragma unroll
-        for (int k = 0; k < kVecPerThread; ++k) {
-          const int64_t i = threadIdx.x + int64_t(k) * kThreads;
-          if (i < n_vec) d4[i] = __ldg(s4 + i);
-        }
-        done = n_vec * 16;
-      }
-      for (int64_t i = done + threadIdx.x; i < len; i += kThreads) d[i] = s[i];
-    }
+    hrn::copy_block(x + (b * views + view) * block_bytes, out + copy * block_bytes,
+                    block_bytes);
   }
 }
 
@@ -78,10 +48,8 @@ extern "C" int hrn_pack_pairs(const void* x, void* out, int64_t batch,
                               int64_t views, int64_t block_bytes, void* stream) {
   const int64_t half = views / 2;
   const int64_t n_copies = 2 * batch * half;
-  const int64_t n_chunks = (block_bytes + kChunkBytes - 1) / kChunkBytes;
-  const dim3 grid(static_cast<unsigned>(n_chunks < 0x7fffffff ? n_chunks : 0x7fffffff),
-                  static_cast<unsigned>(n_copies < 65535 ? n_copies : 65535));
-  pack_pairs_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pack_pairs_kernel<<<hrn::copy_grid(n_copies, block_bytes), hrn::kCopyThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out), n_copies, views,
       half, block_bytes);
   return static_cast<int>(cudaGetLastError());

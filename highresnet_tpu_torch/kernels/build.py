@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into one shared library and load it.
 
 Route: ``nvcc`` by hand into a shared library with a plain C interface,
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
-library lands in ``<repo>/build/kernels/lib<hash>.so``, where the hash
-covers the sources and the compiler flags, so an edited source rebuilds and
-an unchanged one is reused. It builds at first use; nothing here runs at
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds). Each
+``csrc/*.cu`` compiles to an object in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links them. The library lands in
+``<repo>/build/kernels/lib<hash>.so``, where the hash covers the sources,
+the headers and the compiler flags, so an edited source rebuilds and an
+unchanged one is reused. It builds at first use; nothing here runs at
 import time, so machines without ``nvcc`` can import the package.
 
 Pointers and the stream cross the boundary as ``c_void_p``, sizes as
@@ -24,15 +26,21 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")  # the link step's flags
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # exported symbol -> ctypes argtypes
 SIGNATURES = {
+    # (x, out, batch, views, block_bytes, stream)
     "hrn_pack_pairs": (_P, _P, _I64, _I64, _I64, _P),
+    # (g, out, batch, views, block_bytes, stream)
+    "hrn_unpack_pairs": (_P, _P, _I64, _I64, _I64, _P),
+    # (img, ky, kx, out, batch, h, w, stream)
+    "hrn_lanczos_shift": (_P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 _lib = None
@@ -40,6 +48,10 @@ _lib = None
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -55,14 +67,28 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(src: Path, obj: Path) -> list[str]:
+    return [nvcc_path(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def nvcc_command(out: Path, objects: list[Path]) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), *map(str, objects)]
+
+
+def _run(procs: list[tuple[str, subprocess.Popen]]) -> None:
+    failed = []
+    for what, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{what} (exit {proc.returncode}):\n{err}{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build() -> Path:
@@ -71,14 +97,22 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    try:
+        _run([
+            (src.name, subprocess.Popen(compile_command(src, obj), stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))
+            for src, obj in zip(sources(), objects)
+        ])
+        _run([("link", subprocess.Popen(nvcc_command(tmp, objects), stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, out)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -1,10 +1,10 @@
-"""Weights: flax HRNet param tree -> reference state dict, and HRNet.pth IO.
+"""Weights: flax param trees -> reference state dicts, and HRNet.pth IO.
 
-The inverse of ``highresnet_tpu.models.convert.hrnet_params_from_torch``,
-written without JAX: the tree's leaves only need to be array-like (numpy
-arrays, or anything ``np.asarray`` takes). Kernels go HWIO -> OIHW; the
-decoder's deconv kernel (kh, kw, in, out) -> ConvTranspose2d's
-(in, out, kh, kw).
+The inverses of ``highresnet_tpu.models.convert.hrnet_params_from_torch``
+and ``shiftnet_from_torch``, written without JAX: the trees' leaves only
+need to be array-like (numpy arrays, or anything ``np.asarray`` takes).
+Kernels go HWIO -> OIHW; the decoder's deconv kernel (kh, kw, in, out) ->
+ConvTranspose2d's (in, out, kh, kw); dense kernels (in, out) -> (out, in).
 
 The port's weights file is the reference's own ``HRNet.pth`` state-dict
 format. A JAX run directory's Orbax ``best/`` is turned into one with
@@ -62,15 +62,38 @@ def hrnet_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     return out
 
 
+def shiftnet_state_dict_from_flax(
+    params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+) -> Dict[str, torch.Tensor]:
+    """Flax ShiftNet params + batch_stats -> reference ShiftNet.pth state dict
+    (the inverse of ``highresnet_tpu.models.convert.shiftnet_from_torch``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(1, 9):
+        _conv(out, f"layer{i}.0", params[f"conv{i}"])
+        bn, stats = params[f"bn{i}"], batch_stats[f"bn{i}"]
+        out[f"layer{i}.1.weight"] = _t(bn["scale"])
+        out[f"layer{i}.1.bias"] = _t(bn["bias"])
+        out[f"layer{i}.1.running_mean"] = _t(stats["mean"])
+        out[f"layer{i}.1.running_var"] = _t(stats["var"])
+        out[f"layer{i}.1.num_batches_tracked"] = torch.tensor(0)
+    out["fc1.weight"] = _t(np.asarray(params["fc1"]["kernel"]).T)
+    out["fc1.bias"] = _t(params["fc1"]["bias"])
+    out["fc2.weight"] = _t(np.asarray(params["fc2"]["kernel"]).T)
+    return out
+
+
 def load_weights(path_or_dir: str) -> Dict[str, torch.Tensor]:
-    """Read an HRNet.pth state dict (a file, or a directory holding one) onto
-    the CPU; tensors only, no pickled code."""
+    """Read an HRNet.pth state dict onto the CPU; tensors only, no pickled
+    code. Takes the file, a directory holding it, or a run directory of the
+    port's ``cli.train``, which keeps it under ``best/``."""
     path = path_or_dir
     if os.path.isdir(path_or_dir):
-        path = os.path.join(path_or_dir, WEIGHTS_NAME)
-        if not os.path.isfile(path):
+        candidates = [os.path.join(path_or_dir, WEIGHTS_NAME),
+                      os.path.join(path_or_dir, "best", WEIGHTS_NAME)]
+        path = next((p for p in candidates if os.path.isfile(p)), None)
+        if path is None:
             raise FileNotFoundError(
-                f"{path_or_dir} holds no {WEIGHTS_NAME}; for a JAX run directory "
-                "(Orbax best/) make one with scripts/export_torch_weights.py"
+                f"{path_or_dir} holds no {WEIGHTS_NAME} (nor best/{WEIGHTS_NAME}); for a "
+                "JAX run directory (Orbax best/) make one with scripts/export_torch_weights.py"
             )
     return torch.load(path, map_location="cpu", weights_only=True)

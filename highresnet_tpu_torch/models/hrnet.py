@@ -11,7 +11,9 @@ Submodule names equal the reference ``HRNet.pth`` state-dict keys
 
 Every parameter is drawn from an explicit ``torch.Generator`` on the CPU
 (PyTorch's default Conv2d / ConvTranspose2d init), then moved to the device,
-so one seed gives the same weights on every device.
+so one seed gives the same weights on every device. Parameters stay float32
+whatever the compute dtype and are cast at use (``models/layers.py``), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from highresnet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, PReLU
 from highresnet_tpu_torch.ops.fusion import pack_pairs, pack_pairs_ref
 
 
@@ -33,8 +36,8 @@ def lower_median(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.sort(x, dim=dim).values.select(dim, (n - 1) // 2)
 
 
-def _conv(c_in: int, c_out: int, k: int) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, k, padding="same")
+def _conv(c_in: int, c_out: int, k: int) -> Conv2d:
+    return Conv2d(c_in, c_out, k, padding="same")
 
 
 class ResidualBlock(nn.Module):
@@ -44,9 +47,9 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.block = nn.Sequential(
             _conv(channels, channels, kernel_size),
-            nn.PReLU(1),
+            PReLU(1),
             _conv(channels, channels, kernel_size),
-            nn.PReLU(1),
+            PReLU(1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,7 +61,7 @@ class Encoder(nn.Module):
 
     def __init__(self, in_channels=2, channels=64, num_layers=2, kernel_size=3):
         super().__init__()
-        self.init_layer = nn.Sequential(_conv(in_channels, channels, kernel_size), nn.PReLU(1))
+        self.init_layer = nn.Sequential(_conv(in_channels, channels, kernel_size), PReLU(1))
         self.res_layers = nn.Sequential(
             *[ResidualBlock(channels, kernel_size) for _ in range(num_layers)]
         )
@@ -89,7 +92,7 @@ class FusionNet(nn.Module):
         self.fuse = nn.Sequential(
             ResidualBlock(2 * channels, kernel_size),
             _conv(2 * channels, channels, kernel_size),
-            nn.PReLU(1),
+            PReLU(1),
         )
 
     def forward(self, x: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
@@ -118,8 +121,8 @@ class Decoder(nn.Module):
     def __init__(self, in_channels=64, channels=64, out_channels=1, scale=3, final_kernel=1):
         super().__init__()
         self.deconv = nn.Sequential(
-            nn.ConvTranspose2d(in_channels, channels, scale, stride=scale),
-            nn.PReLU(1),
+            ConvTranspose2d(in_channels, channels, scale, stride=scale),
+            PReLU(1),
         )
         self.final = _conv(channels, out_channels, final_kernel)
 
@@ -133,7 +136,8 @@ class HRNet(nn.Module):
     The anchor frame is the lower median of the first min(9, L) views,
     stacked with every view as a second input channel.
     ``dtype`` is the encoder+fusion compute dtype and ``decoder_dtype`` the
-    decoder's (None: same), as ``runtime.compute_dtypes`` maps them.
+    decoder's (None: same), as ``runtime.compute_dtypes`` maps them; the
+    parameters stay float32 and the output is float32.
     """
 
     def __init__(
@@ -176,9 +180,7 @@ class HRNet(nn.Module):
             )
         self.to_empty(device="cpu")
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
-        self.encode.to(device=device, dtype=self.dtype)
-        self.fuse.to(device=device, dtype=self.dtype)
-        self.decode.to(device=device, dtype=self.decoder_dtype)
+        self.to(device=device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

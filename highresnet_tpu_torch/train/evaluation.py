@@ -1,0 +1,106 @@
+"""Validation-set construction and scoring.
+
+The counterpart of ``highresnet_tpu/train/evaluation.py`` (single device:
+no mesh, no multi-host). With norm.csv the val score is the mean of
+ESA / model cPSNR ratios (lower is better, < 1 beats the ESA baseline);
+without it, the mean of −shift_cPSNR.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from highresnet_tpu.data.collate import collate
+from highresnet_tpu.data.probav import read_imageset
+
+
+def build_val_batches(
+    val_scenes,
+    min_l: int,
+    top_k: int,
+    beta: float,
+    batch_size: int,
+    rng=None,
+    truncate_to: Optional[int] = None,
+):
+    """Pre-collate the validation set into fixed-shape batches.
+
+    A seeded ``rng`` freezes the clearance-sampled view selection, so the
+    val score is deterministic across epochs and runs. ``truncate_to=k``
+    keeps each scene's k clearest views (alpha zero-pads back to min_l). A
+    short last batch repeats its last scene; the names list only the real
+    ones. Returns [(names, (lrs, alphas, hrs, hr_maps))] of numpy arrays.
+    """
+    out = []
+    for start in range(0, len(val_scenes), batch_size):
+        dirs = val_scenes[start : start + batch_size]
+        sets = [read_imageset(d, top_k=top_k, beta=beta, rng=rng) for d in dirs]
+        if truncate_to is not None and truncate_to < min_l:
+            sets = [
+                dataclasses.replace(s, lr=s.lr[:truncate_to], clearances=s.clearances[:truncate_to])
+                for s in sets
+            ]
+        n_real = len(sets)
+        if n_real < batch_size:
+            sets = sets + [sets[-1]] * (batch_size - n_real)
+        batch = collate(sets, min_l)
+        out.append((batch.names[:n_real], (batch.lrs, batch.alphas, batch.hrs, batch.hr_maps)))
+    return out
+
+
+def evaluate_model(
+    params_hrnet,
+    eval_step,
+    val_scenes,
+    min_l: int,
+    baseline_cpsnrs: Optional[Dict[str, float]],
+    top_k: int,
+    beta: float,
+    batch_size: int = 1,
+    return_images: bool = False,
+    prebuilt_batches=None,
+    sample_rng=None,
+    device: torch.device | str = "cpu",
+):
+    """Validation score over full-resolution scenes.
+
+    Scenes absent from norm.csv or scoring a non-positive cPSNR are skipped
+    with a warning. Every batch is dispatched first and the scores are read
+    back once at the end. With return_images=True also returns (sr0, hr0)
+    of the first scene, for TensorBoard.
+    """
+    batches = prebuilt_batches
+    if batches is None:
+        batches = build_val_batches(val_scenes, min_l, top_k, beta, batch_size, rng=sample_rng)
+    pending = []  # (names, device scores)
+    first_srs = first_hr = None
+    for names, host_args in batches:
+        args = [torch.from_numpy(a).to(device) for a in host_args]
+        srs, scores = eval_step(params_hrnet, *args)
+        if return_images and first_srs is None:
+            first_srs, first_hr = srs, host_args[2][0]
+        pending.append((names, scores))
+
+    total, n = 0.0, 0
+    for names, scores in pending:
+        for name, s in zip(names, scores.tolist()):
+            if baseline_cpsnrs is not None and name not in baseline_cpsnrs:
+                warnings.warn(f"scene {name!r} missing from norm.csv; skipped in val score")
+                continue
+            if s <= 0.0 or not np.isfinite(s):
+                warnings.warn(f"scene {name!r} scored non-positive cPSNR {s}; skipped")
+                continue
+            total += baseline_cpsnrs[name] / s if baseline_cpsnrs is not None else -s
+            n += 1
+    if n == 0:
+        warnings.warn("no scorable validation scenes; returning +inf val score")
+    score = total / n if n else float("inf")
+    if return_images:
+        sr0 = first_srs[0].cpu().numpy() if first_srs is not None else None
+        return score, sr0, first_hr
+    return score

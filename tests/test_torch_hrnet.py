@@ -110,7 +110,13 @@ def test_compute_dtypes_map_like_jax():
         compute_dtypes("float16")
     body, dec = compute_dtypes("mixed")
     model = HRNet(SMALL_NET, dtype=body, decoder_dtype=dec)
-    assert model.encode.init_layer[0].weight.dtype == torch.bfloat16
-    assert model.decode.final.weight.dtype == torch.float32
+    # parameters stay f32 (cast at use, as in JAX); activations take the dtypes
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    seen = {}
+    for name in ("encode", "fuse", "decode"):
+        getattr(model, name).register_forward_hook(
+            lambda m, args, out, name=name: seen.__setitem__(name, out.dtype)
+        )
     out = model(torch.rand(1, 4, 6, 6), torch.ones(1, 4))
+    assert seen == {"encode": torch.bfloat16, "fuse": torch.bfloat16, "decode": torch.float32}
     assert out.dtype == torch.float32 and out.shape == (1, 18, 18)

@@ -114,6 +114,8 @@ def test_port_leaves_jax_unimported():
         "import highresnet_tpu_torch, highresnet_tpu_torch.cli.predict\n"
         "import highresnet_tpu_torch.eval.submission, highresnet_tpu_torch.kernels.build\n"
         "import highresnet_tpu_torch.models, highresnet_tpu_torch.runtime\n"
+        "import highresnet_tpu_torch.cli.train, highresnet_tpu_torch.train.loop\n"
+        "import highresnet_tpu_torch.ops.lanczos_fused, highresnet_tpu_torch.ops.losses\n"
         "from highresnet_tpu_torch import HRNet, Model, load_data\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'orbax') if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -127,8 +129,10 @@ def test_port_leaves_jax_unimported():
 
 def test_port_sources_have_no_jax_and_no_torch_compile():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b|torch\.compile", re.M)
-    scripts = [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_forward.py"]
+    scripts = [REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("profile_torch_*.py"))]
     files = sorted((REPO / "highresnet_tpu_torch").rglob("*.py")) + scripts
+    for module in ("train/loop.py", "train/step.py", "ops/lanczos_fused.py", "cli/train.py"):
+        assert REPO / "highresnet_tpu_torch" / module in files, module
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
     # the GPU-side scripts reach the reused host code only through the port

@@ -6,8 +6,8 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
   1. card name and power limit (nvidia-smi), torch/CUDA versions, device setup;
   2. build the CUDA kernels from ``highresnet_tpu_torch/csrc``;
   3. [pack] the pair-pack kernel (K1) against its plain PyTorch version:
-     ``torch.equal`` at the headline shape (f32, bf16) and at odd shapes, and
-     both timed with CUDA events;
+     ``torch.equal`` at the headline shape (f32, bf16) and at odd shapes (K1
+     is timed in [dma]);
   4. [unpack] the unpack kernel (K2) the same way at the first-round training
      shape and at odd view counts, then gradients through ``PackPairs`` on
      the card against the CPU plain version's autograd, bit for bit;
@@ -26,9 +26,24 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      val forwards imply; a finite loss; ``best/HRNet.pth`` served by the
      predict CLI; one step on the GPU against the port's CPU path (dropout
      off); the train step timed with the kernels and with the plain versions.
-Then one JSON line with the kernels (``launches`` sums the predict and train
-runs), the card line again, and last the device JSON line.
-Needs CUDA; it imports nothing of JAX.
+     The predict and train runs launch K4 no time.
+  9. [dma] the bulk-copy pair pack (K4) against ``pack_pairs_ref``:
+     ``torch.equal`` at the lab shape (bf16, f32) and at odd view counts,
+     the ``ValueError`` on a misaligned view block, then K4, K1, the plain
+     version and ``index_select`` timed in turns (CUDA events, median of 20
+     after 3 warm-ups) at the lab shape (bf16) and the headline (f32), each
+     with its GB/s and share of the byte bound;
+ 10. [lab4] ``highresnet_tpu_torch.labs.fusion_lab4.main`` on the card with few
+     iterations: K4 correct, its launches and K1's as the lab ran them, pair
+     and split conv within bf16 rounding, finite bf16 forwards at batch 16
+     and 32, and the bf16 forward at batch 16 against the f32 forward of the
+     same weights inside the JAX package's bf16 envelope.
+Then one JSON line with the kernels (``launches`` sums the predict, train and
+lab runs; ``bound_ms`` is the least time the card could take for the timed
+call, from its bytes at 3.35 TB/s and its operations at the peak rate of
+their type; ``library_ms`` is one PyTorch call computing the same function,
+or null), the card line again, and last the device JSON line.
+Needs CUDA; it imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -36,7 +51,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -54,6 +68,17 @@ WARP_ATOL = 1e-5  # K3 vs its plain version on [0, 1] images
 ZERO_SHIFT_ATOL = 1e-6  # a zero shift returns the image
 STEP_LOSS_RTOL = 1e-4  # one train step, GPU vs CPU port: loss
 STEP_GRAD_NORM_RTOL = 1e-3  # and the gradient norm (f32, TF32 off, other conv algorithms)
+LAB = dict(batch=8, views=16, channels=64, size=128)  # examples/fusion_lab4.py's pack shape
+LAB_ITERS, LAB_WARMUP = 3, 1
+# pair vs split conv in bf16: each side rounds to bf16 (pair once, split its
+# two partials and their sum), each rounding at most half an ulp, 2^-9 of
+# the value; four of them stay under 2^-7 of max|pair|, and 2^-6 leaves 2x room
+SPLIT_CONV_RTOL = 2.0 ** -6
+# bf16 vs f32 forward, tests/test_precision.py's envelope on [0.1, 0.9]-normalised
+# outputs, here also relative to max|f32|
+BF16_RMS, BF16_MAX = 3e-3, 1.5e-2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 
 def cuda_times_ms(fn, iters: int, warmup: int) -> list[float]:
@@ -70,16 +95,27 @@ def cuda_times_ms(fn, iters: int, warmup: int) -> list[float]:
     return times
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
+def bound_ms(bytes_moved: float, flops: float = 0.0) -> float:
+    """The least time the card could take: bytes at the memory rate, or the
+    operations at the f32 peak, whichever is larger."""
+    return max(bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
 
 
-def phase_pack(fusion, card: str) -> dict:
-    """K1 against pack_pairs_ref: bit-exact at the headline and odd shapes."""
+def paired_bytes(x: torch.Tensor) -> int:
+    """Bytes a pair pack of x moves: each paired view read once, written once."""
+    return 2 * x.numel() // x.shape[1] * 2 * (x.shape[1] // 2) * x.element_size()
+
+
+def unpack_index_select(g: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
+    """K2's library yardstick for an even view count: one index_select by
+    the inverse of the pair order."""
+    b, half, c2, h, w = g.shape
+    return torch.index_select(g.view(b, 2 * half, c2 // 2, h, w), 1, inverse)
+
+
+def phase_pack(fusion) -> dict:
+    """K1 against pack_pairs_ref: bit-exact at the headline and odd shapes
+    (timed in [dma])."""
     g = torch.Generator(device="cuda").manual_seed(0)
     b, l, s = HEADLINE["batch"], HEADLINE["views"], HEADLINE["size"]
     shapes = [(b, l, 64, s, s), (2, 5, 3, 7, 5), (3, 5, 1, 3, 3), (1, 3, 5, 5, 5)]
@@ -94,26 +130,22 @@ def phase_pack(fusion, card: str) -> dict:
             max_err = max(max_err, (got.float() - want.float()).abs().max().item())
             print(f"[pack] torch.equal(kernel, plain) at {shape} {dtype}: True")
 
-    x = torch.randn((b, l, 64, s, s), generator=g, device="cuda")
-    paired = x.numel() // l * 2 * (l // 2)  # elements of the views that get paired
-    moved = 2 * paired * x.element_size()  # bytes read + bytes written
-    k_ms = statistics.median(cuda_times_ms(lambda: fusion.pack_pairs_cuda(x), 20, 3))
-    p_ms = statistics.median(cuda_times_ms(lambda: fusion.pack_pairs_ref(x), 20, 3))
-    print(
-        f"[pack] {tuple(x.shape)} f32: kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s), "
-        f"plain {p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s); median of 20; {card}"
-    )
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+    return {"max_abs_err": max_err}
 
 
 def reset_counts(fusion, lanczos_fused) -> None:
+    from highresnet_tpu_torch.ops import fusion_dma
+
     for k in fusion.LAUNCHES:
         fusion.LAUNCHES[k] = 0
     lanczos_fused.LAUNCHES = 0
+    fusion_dma.LAUNCHES = 0
 
 
 def read_counts(fusion, lanczos_fused) -> dict:
-    return {**fusion.LAUNCHES, "lanczos": lanczos_fused.LAUNCHES}
+    from highresnet_tpu_torch.ops import fusion_dma
+
+    return {**fusion.LAUNCHES, "lanczos": lanczos_fused.LAUNCHES, "pack_dma": fusion_dma.LAUNCHES}
 
 
 def phase_unpack(fusion, card: str) -> dict:
@@ -146,14 +178,22 @@ def phase_unpack(fusion, card: str) -> dict:
             raise AssertionError(f"PackPairs backward on CUDA != CPU autograd at {shape}")
         print(f"[unpack] PackPairs grad on CUDA == CPU plain autograd at {shape}: True")
 
-    cot = torch.randn((8, TRAIN["views"] // 2, 128, 64, 64), generator=g, device="cuda")
+    from highresnet_tpu_torch.ops.fusion_dma import pair_order
+
+    l = TRAIN["views"]
+    cot = torch.randn((8, l // 2, 128, 64, 64), generator=g, device="cuda")
+    inverse = torch.argsort(pair_order(l, cot.device))
+    if not torch.equal(unpack_index_select(cot, inverse), fusion.unpack_pairs_ref(cot, l)):
+        raise AssertionError("the index_select yardstick is not the unpack")
     moved = 2 * cot.numel() * cot.element_size()  # bytes read + bytes written
-    k_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_cuda(cot, 8), 20, 3))
-    p_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_ref(cot, 8), 20, 3))
-    print(f"[unpack] cotangent {tuple(cot.shape)} f32 -> L=8: kernel {k_ms:.4f} ms "
-          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s); "
-          f"median of 20; {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+    k_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_cuda(cot, l), 20, 3))
+    p_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_ref(cot, l), 20, 3))
+    lib_ms = statistics.median(cuda_times_ms(lambda: unpack_index_select(cot, inverse), 20, 3))
+    print(f"[unpack] cotangent {tuple(cot.shape)} f32 -> L={l}: kernel {k_ms:.4f} ms "
+          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s), "
+          f"index_select {lib_ms:.4f} ms; bound {bound_ms(moved):.4f} ms; median of 20; {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms(moved),
+            "bound_by": "bytes", "library_ms": lib_ms}
 
 
 def phase_warp(lanczos_fused, card: str) -> dict:
@@ -194,10 +234,16 @@ def phase_warp(lanczos_fused, card: str) -> dict:
     ky, kx = (lanczos_kernel(shift[:, i]).contiguous() for i in (0, 1))
     k_ms = statistics.median(cuda_times_ms(lambda: lanczos_fused.lanczos_shift_cuda(img, ky, kx), 20, 3))
     p_ms = statistics.median(cuda_times_ms(lambda: separable_pass(img, ky, kx), 20, 3))
-    moved = 2 * img.numel() * img.element_size()
+    moved = 2 * img.numel() * img.element_size() + 2 * ky.numel() * ky.element_size()
+    flops = 2 * 2 * 7 * img.numel()  # two 7-tap passes, a multiply and an add per tap
+    bound = bound_ms(moved, flops)
+    bound_by = "bytes" if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
     print(f"[warp] (8, 192, 192) f32 on given taps: kernel {k_ms:.4f} ms "
-          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms; median of 20; {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms; bound {bound * 1e3:.3f} us "
+          f"({moved / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; {bound_by}); no single PyTorch call; "
+          f"median of 20; {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase_predict(fusion, lanczos_fused, card: str) -> dict:
@@ -237,7 +283,7 @@ def phase_predict(fusion, lanczos_fused, card: str) -> dict:
         rounds = int(np.log2(views))
         print(f"[predict] {len(scores)} scenes, {n_params} params, pack launches "
               f"{launches} (expected {rounds} per forward), scores {scores}")
-        if counts != {"pack": rounds * len(scores), "unpack": 0, "lanczos": 0}:
+        if counts != {"pack": rounds * len(scores), "unpack": 0, "lanczos": 0, "pack_dma": 0}:
             raise AssertionError(f"expected {rounds * len(scores)} pack launches only, got {counts}")
         if not all(np.isfinite(v) for v in scores.values()):
             raise AssertionError(f"non-finite scores: {scores}")
@@ -331,7 +377,8 @@ def phase_train(fusion, lanczos_fused, card: str, tmp: str) -> dict:
     rounds = int(np.log2(TRAIN["views"]))
     steps = TRAIN["max_steps"]
     val_forwards = epochs * -(-len(val) // t["eval_batch_size"])
-    want = {"pack": rounds * (steps + val_forwards), "unpack": rounds * steps, "lanczos": steps}
+    want = {"pack": rounds * (steps + val_forwards), "unpack": rounds * steps, "lanczos": steps,
+            "pack_dma": 0}
     print(f"[train] cli.train: {steps} steps, {epochs} epochs, {val_forwards} val forwards; "
           f"launches {counts} (expected {want}); last epoch loss {out['train_loss']}, "
           f"best score {out['best_score']}")
@@ -407,12 +454,124 @@ def phase_train_step(card: str, tmp: str) -> None:
               f"{b / ms * 1e3:.1f} scenes/s (median of 10, host clock with sync); {card}")
 
 
+def phase_dma(fusion, fusion_dma, card: str) -> dict:
+    """K4 against pack_pairs_ref bit for bit, its refusal of a misaligned
+    view block, and K4, K1, the plain version and index_select timed in
+    turns. Returns K4's timings at the lab shape (bf16) and K1's at the
+    headline (f32)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, l, c, s = LAB["batch"], LAB["views"], LAB["channels"], LAB["size"]
+    cases = [((b, l, c, s, s), torch.bfloat16), ((b, l, c, s, s), torch.float32),
+             ((2, 5, 8, 4, 4), torch.float32), ((3, 7, 8, 2, 4), torch.bfloat16)]
+    max_err = 0.0
+    for shape, dtype in cases:
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        got, want = fusion_dma.pack_pairs_dma_cuda(x), fusion_dma.pack_pairs_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"pack_pairs_dma_cuda != pack_pairs_ref at {shape} {dtype}")
+        max_err = max(max_err, (got.float() - want.float()).abs().max().item())
+        print(f"[dma] torch.equal(K4, plain) at {shape} {dtype}: True")
+    bad = torch.randn((2, 5, 3, 7, 5), generator=g, device="cuda").to(torch.bfloat16)
+    try:
+        fusion_dma.pack_pairs_dma_cuda(bad)
+    except ValueError as e:
+        print(f"[dma] {tuple(bad.shape)} bf16 ({3 * 7 * 5 * 2} B blocks) refused: {e}")
+    else:
+        raise AssertionError("K4 took a view block that is not 16-byte aligned")
+
+    order = fusion_dma.pair_order(l, "cuda")
+    routes = {"K4": fusion_dma.pack_pairs_dma_cuda, "K1": fusion.pack_pairs_cuda,
+              "plain": fusion_dma.pack_pairs_ref,
+              "index_select": lambda x: fusion_dma.pack_index_select(x, order)}
+    rows = {}
+    for kernel, dtype in (("K4", torch.bfloat16), ("K1", torch.float32)):  # lab shape, headline
+        x = torch.randn((b, l, c, s, s), generator=g, device="cuda").to(dtype)
+        moved = paired_bytes(x)
+        times = {name: [] for name in routes}
+        for fn in routes.values():
+            cuda_times_ms(lambda: fn(x), 0, 3)
+        for _ in range(20):  # in turns, so drift hits every route alike
+            for name, fn in routes.items():
+                times[name] += cuda_times_ms(lambda: fn(x), 1, 0)
+        ms = {name: statistics.median(ts) for name, ts in times.items()}
+        print(f"[dma] {tuple(x.shape)} {str(dtype)[6:]}: " + ", ".join(
+            f"{name} {t:.4f} ms ({moved / t / 1e6:.1f} GB/s, {bound_ms(moved) / t:.1%} of the "
+            f"byte bound)" for name, t in ms.items())
+            + f"; bound {bound_ms(moved):.4f} ms ({moved / 1e9:.3f} GB); median of 20; {card}")
+        rows[kernel] = {"ms": ms[kernel], "plain_ms": ms["plain"], "bound_ms": bound_ms(moved),
+                        "bound_by": "bytes", "library_ms": ms["index_select"]}
+    return {"pack_dma": {"max_abs_err": max_err, **rows["K4"]}, "pack": rows["K1"]}
+
+
+def phase_lab4(fusion, lanczos_fused, card: str, tmp: str) -> dict:
+    """The fusion lab on the card; returns the kernel launch counts in it."""
+    from highresnet_tpu_torch.config import DEFAULT_CONFIG
+    from highresnet_tpu_torch.labs import fusion_lab4
+    from highresnet_tpu_torch.models.hrnet import HRNet
+
+    batches = (16, 32)
+    reset_counts(fusion, lanczos_fused)
+    report = fusion_lab4.main([
+        "--device", "cuda", "--out", os.path.join(tmp, "fusion_lab4_torch.json"),
+        "--iters", str(LAB_ITERS), "--warmup", str(LAB_WARMUP),
+        "--fwd-batches", *map(str, batches),
+    ])
+    counts = read_counts(fusion, lanczos_fused)
+    print(f"[lab4] report {json.dumps(report)}")
+    calls = LAB_ITERS + LAB_WARMUP
+    rounds = int(np.log2(LAB["views"]))
+    want = {"pack": calls + rounds * (1 + calls) * len(batches), "unpack": 0, "lanczos": 0,
+            "pack_dma": 1 + calls}
+    print(f"[lab4] launches {counts} (expected {want}); pack_dma correct "
+          f"{report['pack_dma']['correct']}")
+    if counts != want or report["pack_dma"]["launches"] != want["pack_dma"]:
+        raise AssertionError(f"kernel launches in the lab {counts} != {want}")
+    if report["pack_dma"]["correct"] is not True:
+        raise AssertionError("the lab's K4 output differs from pack_pairs_ref")
+    split = report["splitconv"]
+    limit = SPLIT_CONV_RTOL * split["max_abs_pair"]
+    print(f"[lab4] max|pair - split| conv {split['max_abs_diff']:.4e} (limit {limit:.4e} = "
+          f"2^-6 x max|pair| {split['max_abs_pair']:.4f})")
+    if not split["max_abs_diff"] <= limit:
+        raise AssertionError("pair and split conv disagree beyond bf16 rounding")
+    for batch in batches:
+        entry = report[f"fwd_bf16_batch{batch}"]
+        print(f"[lab4] bf16 forward batch {batch} x {LAB['views']} views x {LAB['size']}px: "
+              f"{entry['step_s'] * 1e3:.3f} ms, {entry['scenes_per_s']:.1f} scenes/s, finite "
+              f"{entry['finite']} (median of {LAB_ITERS}); {card}")
+        if entry["finite"] is not True:
+            raise AssertionError(f"the bf16 forward at batch {batch} is not finite")
+
+    # bf16 against f32 on the lab's weights and inputs at batch 16
+    batch, l, s = batches[0], LAB["views"], LAB["size"]
+    rng = np.random.default_rng(0)
+    lrs = torch.from_numpy(rng.random((batch, l, s, s), dtype=np.float32)).cuda()
+    alphas = torch.ones((batch, l), device="cuda")
+    srs = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            model = HRNet(DEFAULT_CONFIG["network"], device="cuda", dtype=dtype,
+                          generator=torch.Generator().manual_seed(0)).eval()
+            srs[dtype] = model(lrs, alphas).double()
+    sr32, err = srs[torch.float32], srs[torch.bfloat16] - srs[torch.float32]
+    for how, scale in (("on [0.1, 0.9]", 0.8 / (sr32.max() - sr32.min()).item()),
+                       ("relative to max|f32|", 1 / sr32.abs().max().item())):
+        rms = err.square().mean().sqrt().item() * scale
+        mx = err.abs().max().item() * scale
+        print(f"[lab4] bf16 vs f32 forward, batch {batch}, {how}: rms {rms:.4e} (limit "
+              f"{BF16_RMS}), max {mx:.4e} (limit {BF16_MAX})")
+        if not (rms < BF16_RMS and mx < BF16_MAX):
+            raise AssertionError(f"the bf16 forward leaves the bf16 envelope ({how})")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
     from highresnet_tpu_torch.kernels import build
-    from highresnet_tpu_torch.ops import fusion, lanczos_fused
-    from highresnet_tpu_torch.runtime import setup_device
+    from highresnet_tpu_torch.ops import fusion, fusion_dma, lanczos_fused
+    from highresnet_tpu_torch.runtime import card_line, setup_device
 
     card = card_line()
     print(card)
@@ -428,7 +587,7 @@ def main() -> None:
     print(f"[build] {os.path.relpath(path, REPO)} {how}")
 
     measured = {
-        "pack": phase_pack(fusion, card),
+        "pack": phase_pack(fusion),
         "unpack": phase_unpack(fusion, card),
         "lanczos": phase_warp(lanczos_fused, card),
     }
@@ -437,18 +596,24 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         trained = phase_train(fusion, lanczos_fused, card, tmp)
         phase_train_step(card, tmp)
+    dma = phase_dma(fusion, fusion_dma, card)
+    measured["pack"].update(dma["pack"])
+    measured["pack_dma"] = dma["pack_dma"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lab4_") as tmp:
+        lab = phase_lab4(fusion, lanczos_fused, card, tmp)
 
     sources = {
         "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),
         "unpack": ("unpack_pairs", "unpack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:104"),
         "lanczos": ("lanczos_shift", "lanczos_shift.cu", "highresnet_tpu/ops/lanczos_pallas.py:39"),
+        "pack_dma": ("pack_pairs_dma", "pack_pairs_dma.cu", "examples/fusion_lab4.py:64"),
     }
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": predicted[key] + trained[key],
+        "launches": predicted[key] + trained[key] + lab[key],
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

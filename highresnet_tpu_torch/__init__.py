@@ -2,14 +2,18 @@
 
 The JAX package ``highresnet_tpu`` is the reference; this package runs the
 same models on PyTorch, with the TPU's Pallas kernels rewritten by hand in
-CUDA for sm_90a. It imports ``torch`` and never JAX. Ported so far: the
-HRNet serving path (``cli.predict``) and the registered training path
-(``cli.train``).
+CUDA for sm_90a. It imports ``torch`` and never JAX, nor anything of
+``highresnet_tpu``. Ported so far: the HRNet serving path (``cli.predict``),
+the registered training path (``cli.train``) and the fusion lab
+(``labs.fusion_lab4``).
 
 - ``models``   HRNet, ShiftNet, f32-parameter layers, weight IO.
-- ``ops``      fusion pair pack/unpack and the Lanczos warp (CUDA kernels +
-               plain twins), losses, cPSNR metrics.
+- ``ops``      fusion pair pack/unpack, the bulk-copy pack and the Lanczos
+               warp (CUDA kernels + plain twins), losses, cPSNR metrics.
 - ``kernels``  nvcc build of ``csrc/*.cu`` and its ctypes binding.
+- ``config``, ``data``, ``utils``  the port's own copies of the JAX
+               package's host code (configs, scene loading, PNG IO).
+- ``labs``     perf labs run as modules.
 - ``train``    train state, steps, epoch loop, checkpoints, selection.
 - ``eval``     scene scoring, ESA-ratio table, submission writer.
 - ``runtime``  device setup (TF32 off, deterministic) and compute dtypes.
@@ -22,7 +26,7 @@ _TOP_LEVEL = {
     "HRNet": ("highresnet_tpu_torch.models.hrnet", "HRNet"),
     "Model": ("highresnet_tpu_torch.eval.evaluator", "Model"),
     "load_data": ("highresnet_tpu_torch.eval.evaluator", "load_data"),
-    "load_config": ("highresnet_tpu.config", "load_config"),
+    "load_config": ("highresnet_tpu_torch.config", "load_config"),
 }
 
 

@@ -48,7 +48,7 @@ def main(argv=None):
     if args.registered:
         parser.error(NOT_PORTED["registration"])
 
-    from highresnet_tpu.config import load_config
+    from highresnet_tpu_torch.config import load_config
     from highresnet_tpu_torch.eval.evaluator import Model, benchmark, evaluate, load_data
     from highresnet_tpu_torch.runtime import setup_device
 

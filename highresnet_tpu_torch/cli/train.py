@@ -26,7 +26,7 @@ def main(argv=None):
     if not os.path.isfile(args.config):
         parser.error(f"config file not found: {args.config}")
 
-    from highresnet_tpu.config import load_config
+    from highresnet_tpu_torch.config import load_config
     from highresnet_tpu_torch.runtime import setup_device
     from highresnet_tpu_torch.train.loop import train_and_get_best_model
 

@@ -26,7 +26,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from highresnet_tpu.config import load_config
+from highresnet_tpu_torch.config import load_config
 from highresnet_tpu_torch.data import (
     Batch,
     ImageSet,

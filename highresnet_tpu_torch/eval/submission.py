@@ -10,8 +10,8 @@ from __future__ import annotations
 import os
 from zipfile import ZipFile
 
-from highresnet_tpu.utils.imageio import img_as_uint16, imsave_u16
 from highresnet_tpu_torch.eval.evaluator import get_sr_and_score
+from highresnet_tpu_torch.utils.imageio import img_as_uint16, imsave_u16
 
 
 def generate_submission_file(

@@ -37,6 +37,8 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {
     # (x, out, batch, views, block_bytes, stream)
     "hrn_pack_pairs": (_P, _P, _I64, _I64, _I64, _P),
+    # (x, out, batch, views, block_bytes, stream): K1's signature
+    "hrn_pack_pairs_dma": (_P, _P, _I64, _I64, _I64, _P),
     # (g, out, batch, views, block_bytes, stream)
     "hrn_unpack_pairs": (_P, _P, _I64, _I64, _I64, _P),
     # (img, ky, kx, out, batch, h, w, stream)

@@ -19,6 +19,7 @@ that is missing raises; nothing falls back to the CPU.
 from __future__ import annotations
 
 import os
+import subprocess
 
 import torch
 
@@ -36,6 +37,16 @@ def setup_device(device: str | torch.device) -> torch.device:
         torch.backends.cudnn.deterministic = True
         torch.use_deterministic_algorithms(True)
     return device
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

@@ -15,8 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from highresnet_tpu.data.collate import collate
-from highresnet_tpu.data.probav import read_imageset
+from highresnet_tpu_torch.data import collate, read_imageset
 
 
 def build_val_batches(

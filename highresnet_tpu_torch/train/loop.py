@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from highresnet_tpu.data.probav import discover_scenes, read_baseline_cpsnr, train_val_split
+from highresnet_tpu_torch.data import discover_scenes, read_baseline_cpsnr, train_val_split
 from highresnet_tpu_torch.runtime import resolve_device
 from highresnet_tpu_torch.train.checkpoint import CheckpointManager, resume_run
 from highresnet_tpu_torch.train.epoch import run_train_epoch, warn_warp_window

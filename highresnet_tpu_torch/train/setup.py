@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from highresnet_tpu.data.pipeline import BatchLoader
+from highresnet_tpu_torch.data import BatchLoader
 from highresnet_tpu_torch.train.state import TrainState, create_train_state
 from highresnet_tpu_torch.train.step import build_eval_step, build_train_step
 

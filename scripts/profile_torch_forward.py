@@ -39,11 +39,11 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_torch_forward: needs a CUDA device")
 
-    from chip_smoke import HEADLINE, card_line, cuda_times_ms
+    from chip_smoke import HEADLINE, cuda_times_ms
     from highresnet_tpu_torch import load_config
     from highresnet_tpu_torch.models.hrnet import HRNet, lower_median
     from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
-    from highresnet_tpu_torch.runtime import setup_device
+    from highresnet_tpu_torch.runtime import card_line, setup_device
 
     card = card_line()
     setup_device("cuda")

@@ -40,11 +40,10 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train: needs a CUDA device")
 
-    from chip_smoke import card_line
     from highresnet_tpu_torch import load_config
     from highresnet_tpu_torch.ops.lanczos_fused import lanczos_shift_fused
     from highresnet_tpu_torch.ops.losses import crop_mask, registered_loss
-    from highresnet_tpu_torch.runtime import setup_device
+    from highresnet_tpu_torch.runtime import card_line, setup_device
     from highresnet_tpu_torch.train.state import create_train_state, global_norm
     from highresnet_tpu_torch.train.step import build_train_step
 

@@ -1,4 +1,4 @@
-"""The port's tests that need an NVIDIA GPU: its three CUDA kernels against
+"""The port's tests that need an NVIDIA GPU: its four CUDA kernels against
 their plain versions, and a GPU training run that repeats, and resumes, bit
 for bit. Every test skips without a card.
 
@@ -15,7 +15,7 @@ import os
 import pytest
 import torch
 
-from highresnet_tpu_torch.ops import fusion, lanczos_fused
+from highresnet_tpu_torch.ops import fusion, fusion_dma, lanczos_fused
 
 # tests/test_train.py's TINY_CONFIG: channels 8, patch 16, register 32, batch 2, L 4
 TINY_CONFIG = {
@@ -53,6 +53,24 @@ def test_pack_pairs_cuda_bit_exact(shape, cuda):
         got = fusion.pack_pairs(x)
         assert fusion.LAUNCHES["pack"] == before + 1
         assert torch.equal(got, fusion.pack_pairs_ref(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 64, 128, 128), (2, 5, 8, 4, 4), (3, 7, 8, 2, 4)])
+def test_pack_pairs_dma_cuda_bit_exact(shape, cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, device=cuda).to(dtype)
+        before = fusion_dma.LAUNCHES
+        got = fusion_dma.pack_pairs_dma(x)
+        assert fusion_dma.LAUNCHES == before + 1
+        assert torch.equal(got, fusion_dma.pack_pairs_ref(x))
+    misaligned = [
+        torch.zeros((2, 5, 3, 7, 5), device=cuda, dtype=torch.bfloat16),  # 210-byte view blocks
+        torch.zeros(2 * 4 * 8 * 16 + 1, device=cuda)[1:].view(2, 4, 8, 4, 4),  # base 4 bytes in
+    ]
+    for x in misaligned:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fusion_dma.pack_pairs_dma_cuda(x)
 
 
 @pytest.mark.cuda

@@ -93,6 +93,7 @@ def test_dispatch_sends_cpu_tensors_to_the_plain_version():
 def test_kernel_source_and_build_target_sm90a(tmp_path, monkeypatch):
     replaced = {
         "pack_pairs.cu": "fusion_pallas.py::_pack_kernel",
+        "pack_pairs_dma.cu": "fusion_lab4.py::pack_dma",
         "unpack_pairs.cu": "fusion_pallas.py::_unpack_kernel",
         "lanczos_shift.cu": "lanczos_pallas.py::_fused_shift_kernel",
     }

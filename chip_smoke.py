@@ -10,10 +10,14 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      is timed in [dma]);
   4. [unpack] the unpack kernel (K2) the same way at the first-round training
      shape and at odd view counts, then gradients through ``PackPairs`` on
-     the card against the CPU plain version's autograd, bit for bit;
-  5. [warp] the Lanczos warp kernel (K3) against its plain version (limit
-     1e-5) at the training shape and two odd shapes, zero shift, gradients
-     of ``LanczosShift`` against the plain autograd, and both timed;
+     the card against the CPU plain version's autograd, bit for bit; K2
+     timed in turns with K1 on a pack that moves the same bytes, the plain
+     version and ``index_select``;
+  5. [warp] the Lanczos warp kernel (K3, taps computed inside it) against
+     its plain version (limit 1e-5) at the training shape and two odd
+     shapes, zero shift, gradients of ``LanczosShift`` against the plain
+     autograd, the in-kernel taps against ``lanczos_kernel``, and K3 and the
+     plain version (taps included) timed;
   6. [predict] the predict CLI end to end on a synthetic 16-view 128 px
      dataset with the full-width network of configs/config.json and seeded
      random weights; K1's launches in that run; the first scene's SR and
@@ -30,14 +34,27 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
   9. [dma] the bulk-copy pair pack (K4) against ``pack_pairs_ref``:
      ``torch.equal`` at the lab shape (bf16, f32) and at odd view counts,
      the ``ValueError`` on a misaligned view block, then K4, K1, the plain
-     version and ``index_select`` timed in turns (CUDA events, median of 20
-     after 3 warm-ups) at the lab shape (bf16) and the headline (f32), each
-     with its GB/s and share of the byte bound;
+     version and ``index_select`` timed in turns at the lab shape (bf16) and
+     the headline (f32), each with its GB/s and share of the byte bound;
  10. [lab4] ``highresnet_tpu_torch.labs.fusion_lab4.main`` on the card with few
      iterations: K4 correct, its launches and K1's as the lab ran them, pair
      and split conv within bf16 rounding, finite bf16 forwards at batch 16
      and 32, and the bf16 forward at batch 16 against the f32 forward of the
-     same weights inside the JAX package's bf16 envelope.
+     same weights inside the JAX package's bf16 envelope;
+ 11. [fills] each kernel's wrapper once under torch.profiler: its kernel is
+     the one device operation it launches (no NaN fill of its output under
+     deterministic algorithms), and so is the forward of ``LanczosShift``;
+     then the fill that ``torch.empty`` would launch, timed at each kernel's
+     timed output shape, the host time of ``torch.empty`` against
+     ``kernels.alloc.empty_output`` at the same shapes, and each wrapper's
+     host time per call.
+Each bit-exact or tolerance check of K1-K4 reads an output that the kernel
+wrote into a block just filled with NaN and freed (``poison``), so a byte
+the kernel leaves unwritten shows. Kernel times: ``ms`` is device time per
+call, from a CUDA graph of 20 back-to-back calls replayed between two
+events (median of 10 replays); ``call_ms`` is one call between two events,
+the wrapper's host part included (median of 20), the series of the earlier
+runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
 Then one JSON line with the kernels (``launches`` sums the predict, train and
 lab runs; ``bound_ms`` is the least time the card could take for the timed
 call, from its bytes at 3.35 TB/s and its operations at the peak rate of
@@ -77,11 +94,15 @@ SPLIT_CONV_RTOL = 2.0 ** -6
 # bf16 vs f32 forward, tests/test_precision.py's envelope on [0.1, 0.9]-normalised
 # outputs, here also relative to max|f32|
 BF16_RMS, BF16_MAX = 3e-3, 1.5e-2
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 10  # kernel times: calls per CUDA graph, replays timed
+HOST_CALLS = 200  # host time of an allocation: calls timed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 
 def cuda_times_ms(fn, iters: int, warmup: int) -> list[float]:
+    """One call between two CUDA events, ``iters`` times: host and device
+    time together (the wrapper's checks, the ctypes launch, the kernel)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -93,6 +114,87 @@ def cuda_times_ms(fn, iters: int, warmup: int) -> list[float]:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def graph_times_ms(fns: dict, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> dict:
+    """Device time per call of each function: ``calls`` back-to-back calls
+    captured in one CUDA graph, the graph replayed between two events, the
+    time divided by ``calls``; the graphs replayed in turns, so drift hits
+    every function alike, and the median of ``replays`` kept. The launches
+    that the warm-up and the capture count are taken back."""
+    from highresnet_tpu_torch.kernels import build
+
+    build.load()  # never inside a capture
+    saved = read_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
+        for fn in fns.values():
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = {}
+    for name, fn in fns.items():
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(calls):
+                fn()
+    write_counts(saved)
+    for graph in graphs.values():
+        graph.replay()
+    times = {name: [] for name in graphs}
+    for _ in range(replays):
+        for name, graph in graphs.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / calls)
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def host_us(fn, calls: int = HOST_CALLS, warmup: int = 20) -> float:
+    """Host time of one call of ``fn`` on the CPU clock, median of ``calls``;
+    the card is drained between calls, outside the timed span."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+        del out
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def poison(shape, dtype) -> int:
+    """Fill a block of an output's size with NaN and free it: the caching
+    allocator hands that block to the next allocation of the same size, so
+    a byte the kernel leaves unwritten reads as NaN. Returns its address."""
+    torch.cuda.empty_cache()  # no other free block of that size to choose
+    block = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+    address = block.data_ptr()
+    del block
+    return address
+
+
+def check_poisoned(out: torch.Tensor, address: int, what: str) -> None:
+    if out.data_ptr() != address:
+        raise AssertionError(f"{what}: the output did not land in the NaN-filled block")
+
+
+def device_ops(fn) -> list[str]:
+    """Names of the device operations (kernels, copies, memsets) that ``fn``
+    launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def bound_ms(bytes_moved: float, flops: float = 0.0) -> float:
@@ -114,8 +216,8 @@ def unpack_index_select(g: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
 
 
 def phase_pack(fusion) -> dict:
-    """K1 against pack_pairs_ref: bit-exact at the headline and odd shapes
-    (timed in [dma])."""
+    """K1 against pack_pairs_ref: bit-exact at the headline and odd shapes,
+    its output in a NaN-filled block (timed in [dma])."""
     g = torch.Generator(device="cuda").manual_seed(0)
     b, l, s = HEADLINE["batch"], HEADLINE["views"], HEADLINE["size"]
     shapes = [(b, l, 64, s, s), (2, 5, 3, 7, 5), (3, 5, 1, 3, 3), (1, 3, 5, 5, 5)]
@@ -123,55 +225,72 @@ def phase_pack(fusion) -> dict:
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-            got, want = fusion.pack_pairs_cuda(x), fusion.pack_pairs_ref(x)
+            address = poison((shape[0], shape[1] // 2, 2 * shape[2], *shape[3:]), dtype)
+            got = fusion.pack_pairs_cuda(x)
+            check_poisoned(got, address, f"pack_pairs_cuda at {shape} {dtype}")
+            want = fusion.pack_pairs_ref(x)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"pack_pairs_cuda != pack_pairs_ref at {shape} {dtype}")
             max_err = max(max_err, (got.float() - want.float()).abs().max().item())
-            print(f"[pack] torch.equal(kernel, plain) at {shape} {dtype}: True")
+            print(f"[pack] torch.equal(kernel, plain) at {shape} {dtype}, output in a "
+                  f"NaN-filled block: True")
 
     return {"max_abs_err": max_err}
 
 
-def reset_counts(fusion, lanczos_fused) -> None:
-    from highresnet_tpu_torch.ops import fusion_dma
+def write_counts(counts: dict) -> None:
+    from highresnet_tpu_torch.ops import fusion, fusion_dma, lanczos_fused
 
     for k in fusion.LAUNCHES:
-        fusion.LAUNCHES[k] = 0
-    lanczos_fused.LAUNCHES = 0
-    fusion_dma.LAUNCHES = 0
+        fusion.LAUNCHES[k] = counts[k]
+    lanczos_fused.LAUNCHES = counts["lanczos"]
+    fusion_dma.LAUNCHES = counts["pack_dma"]
 
 
-def read_counts(fusion, lanczos_fused) -> dict:
-    from highresnet_tpu_torch.ops import fusion_dma
+def reset_counts() -> None:
+    write_counts(dict.fromkeys(("pack", "unpack", "lanczos", "pack_dma"), 0))
+
+
+def read_counts() -> dict:
+    from highresnet_tpu_torch.ops import fusion, fusion_dma, lanczos_fused
 
     return {**fusion.LAUNCHES, "lanczos": lanczos_fused.LAUNCHES, "pack_dma": fusion_dma.LAUNCHES}
 
 
 def phase_unpack(fusion, card: str) -> dict:
-    """K2 against unpack_pairs_ref bit for bit; PackPairs gradients on the
-    card against the CPU plain version's autograd."""
+    """K2 against unpack_pairs_ref bit for bit, its output in a NaN-filled
+    block; PackPairs gradients on the card against the CPU plain version's
+    autograd; K2 timed in turns with K1 on a pack that moves the same bytes,
+    the plain version and index_select."""
     g = torch.Generator(device="cuda").manual_seed(1)
     # (B, L, 2C, H, W): the cotangent of an L-view pack is (B, L//2, 2C, H, W)
     first_round = (8, TRAIN["views"], 128, 64, 64)
     cases = [(first_round, torch.float32), (first_round, torch.bfloat16),
-             ((2, 5, 6, 7, 5), torch.float32), ((3, 3, 2, 3, 3), torch.bfloat16)]
+             ((2, 5, 6, 7, 5), torch.float32), ((3, 3, 2, 3, 3), torch.bfloat16),
+             ((1, 3, 10, 5, 5), torch.float32), ((1, 3, 10, 5, 5), torch.bfloat16)]
     max_err = 0.0
     for (b, l, c2, h, w), dtype in cases:
         cot = torch.randn((b, l // 2, c2, h, w), generator=g, device="cuda").to(dtype)
-        got, want = fusion.unpack_pairs_cuda(cot, l), fusion.unpack_pairs_ref(cot, l)
+        address = poison((b, l, c2 // 2, h, w), dtype)
+        got = fusion.unpack_pairs_cuda(cot, l)
+        check_poisoned(got, address, f"unpack_pairs_cuda at L={l} {tuple(cot.shape)} {dtype}")
+        want = fusion.unpack_pairs_ref(cot, l)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"unpack_pairs_cuda != unpack_pairs_ref at L={l} {cot.shape} {dtype}")
         max_err = max(max_err, (got.float() - want.float()).abs().max().item())
-        print(f"[unpack] torch.equal(kernel, plain) at L={l}, cotangent {tuple(cot.shape)} {dtype}: True")
+        print(f"[unpack] torch.equal(kernel, plain) at L={l}, cotangent {tuple(cot.shape)} {dtype}, "
+              f"output in a NaN-filled block: True")
 
     for shape in ((8, 8, 64, 64, 64), (2, 5, 3, 7, 5), (1, 3, 4, 5, 5)):
         x = torch.randn(shape, generator=g, device="cuda", requires_grad=True)
         cot = torch.randn((shape[0], shape[1] // 2, 2 * shape[2], *shape[3:]), generator=g,
                           device="cuda")
         before = fusion.LAUNCHES["unpack"]
-        (gx,) = torch.autograd.grad(fusion.pack_pairs(x), x, cot)
+        y = fusion.pack_pairs(x)
+        poison(shape, torch.float32)  # for the backward's K2 output
+        (gx,) = torch.autograd.grad(y, x, cot)
         xc = x.detach().cpu().requires_grad_()
         (want,) = torch.autograd.grad(fusion.pack_pairs(xc), xc, cot.cpu())
         if fusion.LAUNCHES["unpack"] != before + 1 or not torch.equal(gx.cpu(), want):
@@ -182,35 +301,63 @@ def phase_unpack(fusion, card: str) -> dict:
 
     l = TRAIN["views"]
     cot = torch.randn((8, l // 2, 128, 64, 64), generator=g, device="cuda")
+    x = torch.randn((8, l, 64, 64, 64), generator=g, device="cuda")  # K1: the same bytes
     inverse = torch.argsort(pair_order(l, cot.device))
     if not torch.equal(unpack_index_select(cot, inverse), fusion.unpack_pairs_ref(cot, l)):
         raise AssertionError("the index_select yardstick is not the unpack")
     moved = 2 * cot.numel() * cot.element_size()  # bytes read + bytes written
-    k_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_cuda(cot, l), 20, 3))
-    p_ms = statistics.median(cuda_times_ms(lambda: fusion.unpack_pairs_ref(cot, l), 20, 3))
-    lib_ms = statistics.median(cuda_times_ms(lambda: unpack_index_select(cot, inverse), 20, 3))
-    print(f"[unpack] cotangent {tuple(cot.shape)} f32 -> L={l}: kernel {k_ms:.4f} ms "
-          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s), "
-          f"index_select {lib_ms:.4f} ms; bound {bound_ms(moved):.4f} ms; median of 20; {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms(moved),
-            "bound_by": "bytes", "library_ms": lib_ms}
+    if paired_bytes(x) != moved:
+        raise AssertionError("K1's pack does not move K2's bytes")
+    routes = {"K2": lambda: fusion.unpack_pairs_cuda(cot, l),
+              "K1 (pack, same bytes)": lambda: fusion.pack_pairs_cuda(x),
+              "plain": lambda: fusion.unpack_pairs_ref(cot, l),
+              "index_select": lambda: unpack_index_select(cot, inverse)}
+    ms = graph_times_ms(routes)
+    call_ms = statistics.median(cuda_times_ms(routes["K2"], 20, 3))
+    bound = bound_ms(moved)
+    print(f"[unpack] cotangent {tuple(cot.shape)} f32 -> L={l}, {moved / 1e6:.1f} MB moved; "
+          "device time per call (CUDA graph of " + f"{GRAPH_CALLS} calls, median of "
+          f"{GRAPH_REPLAYS} replays, in turns): " + ", ".join(
+              f"{name} {t:.4f} ms ({moved / t / 1e6:.1f} GB/s, {bound / t:.1%} of the byte bound)"
+              for name, t in ms.items())
+          + f"; K2 one call with its host part {call_ms:.4f} ms (median of 20); bound "
+          f"{bound:.4f} ms; {card}")
+    return {"max_abs_err": max_err, "ms": ms["K2"], "call_ms": call_ms, "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": ms["index_select"]}
+
+
+def kernel_taps(lanczos_fused, shift: torch.Tensor) -> torch.Tensor:
+    """K3's in-kernel taps (B, 2, 7), read back through line images: a
+    horizontal line at row c comes out as ky[t] at row c + 3 - t, times the
+    sum of kx (1 within rounding), and a vertical line likewise gives kx."""
+    n, c = 16, 8
+    t = torch.arange(7, device="cuda")
+    rows = torch.zeros((shift.shape[0], n, n), device="cuda")
+    rows[:, c] = 1.0
+    ky = lanczos_fused.lanczos_shift_cuda(rows, shift)[:, c + 3 - t, n // 2]
+    kx = lanczos_fused.lanczos_shift_cuda(rows.transpose(1, 2).contiguous(), shift)[:, n // 2, c + 3 - t]
+    return torch.stack([ky, kx], dim=1)
 
 
 def phase_warp(lanczos_fused, card: str) -> dict:
-    """K3 against lanczos_shift_ref; LanczosShift gradients against the
-    plain autograd; both timed."""
-    from highresnet_tpu_torch.ops.lanczos import lanczos_kernel, separable_pass
+    """K3 against lanczos_shift_ref, its output in a NaN-filled block;
+    LanczosShift gradients against the plain autograd; the in-kernel taps
+    against lanczos_kernel; K3 and the plain version timed."""
+    from highresnet_tpu_torch.ops.lanczos import lanczos_kernel
 
     g = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
     for shape in ((8, 3 * 64, 3 * 64), (3, 17, 23), (2, 4, 9)):
         img = torch.rand(shape, generator=g, device="cuda")
         shift = torch.rand((shape[0], 2), generator=g, device="cuda") * 6 - 3
+        address = poison(shape, torch.float32)
         got = lanczos_fused.LanczosShift.apply(img, shift)
+        check_poisoned(got, address, f"LanczosShift at {shape}")
         want = lanczos_fused.lanczos_shift_ref(img, shift)
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        print(f"[warp] {shape} shifts in ±3 px: max|kernel - plain| {err:.3e} (limit {WARP_ATOL})")
+        print(f"[warp] {shape} shifts in ±3 px, output in a NaN-filled block: max|kernel - plain| "
+              f"{err:.3e} (limit {WARP_ATOL})")
         if not err <= WARP_ATOL:
             raise AssertionError(f"lanczos kernel disagrees with its plain version at {shape}")
 
@@ -224,26 +371,40 @@ def phase_warp(lanczos_fused, card: str) -> dict:
         print(f"[warp] {shape} LanczosShift grads (image, shift) == plain autograd: True")
 
     img = torch.rand((8, 192, 192), generator=g, device="cuda")
+    address = poison(img.shape, torch.float32)
     zero = lanczos_fused.LanczosShift.apply(img, torch.zeros((8, 2), device="cuda"))
+    check_poisoned(zero, address, "LanczosShift at zero shift")
     z_err = (zero - img).abs().max().item()
-    print(f"[warp] zero shift: max|out - img| {z_err:.3e} (limit {ZERO_SHIFT_ATOL})")
+    print(f"[warp] zero shift, output in a NaN-filled block: max|out - img| {z_err:.3e} "
+          f"(limit {ZERO_SHIFT_ATOL})")
     if not z_err <= ZERO_SHIFT_ATOL:
         raise AssertionError("a zero shift does not return the image")
 
     shift = torch.rand((8, 2), generator=g, device="cuda") * 6 - 3
-    ky, kx = (lanczos_kernel(shift[:, i]).contiguous() for i in (0, 1))
-    k_ms = statistics.median(cuda_times_ms(lambda: lanczos_fused.lanczos_shift_cuda(img, ky, kx), 20, 3))
-    p_ms = statistics.median(cuda_times_ms(lambda: separable_pass(img, ky, kx), 20, 3))
-    moved = 2 * img.numel() * img.element_size() + 2 * ky.numel() * ky.element_size()
-    flops = 2 * 2 * 7 * img.numel()  # two 7-tap passes, a multiply and an add per tap
+    shift[:4] = torch.tensor([[0.0, 1.0], [-3.0, 2.0], [0.5, -0.5], [2.999, -1e-7]], device="cuda")
+    taps = torch.stack([lanczos_kernel(shift[:, i]) for i in (0, 1)], dim=1)
+    tap_err = (kernel_taps(lanczos_fused, shift) - taps).abs().max().item()
+    print(f"[warp] in-kernel taps (read back through line images) vs lanczos_kernel on the card, "
+          f"shifts in ±3 px with integers: max|diff| {tap_err:.3e}")
+
+    ms = graph_times_ms({"K3": lambda: lanczos_fused.lanczos_shift_cuda(img, shift),
+                         "plain": lambda: lanczos_fused.lanczos_shift_ref(img, shift)})
+    call_ms = statistics.median(cuda_times_ms(
+        lambda: lanczos_fused.lanczos_shift_cuda(img, shift), 20, 3))
+    # the image read and written, the shifts read; two 7-tap passes, a multiply
+    # and an add per tap (the 14 taps per image are a few hundred operations more)
+    moved = 2 * img.numel() * img.element_size() + shift.numel() * shift.element_size()
+    flops = 2 * 2 * 7 * img.numel()
     bound = bound_ms(moved, flops)
     bound_by = "bytes" if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
-    print(f"[warp] (8, 192, 192) f32 on given taps: kernel {k_ms:.4f} ms "
-          f"({moved / k_ms / 1e6:.1f} GB/s), plain {p_ms:.4f} ms; bound {bound * 1e3:.3f} us "
+    print(f"[warp] (8, 192, 192) f32, taps in the kernel: device time per call (CUDA graph of "
+          f"{GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays, in turns) K3 {ms['K3']:.4f} ms "
+          f"({moved / ms['K3'] / 1e6:.1f} GB/s), plain (taps included) {ms['plain']:.4f} ms; K3 one "
+          f"call with its host part {call_ms:.4f} ms (median of 20); bound {bound * 1e3:.3f} us "
           f"({moved / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; {bound_by}); no single PyTorch call; "
-          f"median of 20; {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": None}
+          f"{card}")
+    return {"max_abs_err": max_err, "ms": ms["K3"], "call_ms": call_ms, "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_predict(fusion, lanczos_fused, card: str) -> dict:
@@ -272,12 +433,12 @@ def phase_predict(fusion, lanczos_fused, card: str) -> dict:
         n_params = param_count(model)
         torch.save(model.state_dict(), os.path.join(run_dir, "HRNet.pth"))
 
-        reset_counts(fusion, lanczos_fused)
+        reset_counts()
         table = predict.main([
             "--config", cfg_path, "--checkpoint", run_dir,
             "--splits", "train", "val", "--device", "cuda",
         ])
-        counts = read_counts(fusion, lanczos_fused)
+        counts = read_counts()
         launches = counts["pack"]
         scores = table["model"].astype(float).to_dict()
         rounds = int(np.log2(views))
@@ -365,10 +526,10 @@ def phase_train(fusion, lanczos_fused, card: str, tmp: str) -> dict:
     cfg, cfg_path = train_config(tmp)
     t = cfg["training"]
     run_dir = os.path.join(tmp, "run")
-    reset_counts(fusion, lanczos_fused)
+    reset_counts()
     out = train.main(["--config", cfg_path, "--run-dir", run_dir,
                       "--max-steps", str(TRAIN["max_steps"]), "--device", "cuda"])
-    counts = read_counts(fusion, lanczos_fused)
+    counts = read_counts()
 
     with open(os.path.join(run_dir, "latest.json")) as f:
         epochs = json.load(f)["epoch"]
@@ -455,10 +616,10 @@ def phase_train_step(card: str, tmp: str) -> None:
 
 
 def phase_dma(fusion, fusion_dma, card: str) -> dict:
-    """K4 against pack_pairs_ref bit for bit, its refusal of a misaligned
-    view block, and K4, K1, the plain version and index_select timed in
-    turns. Returns K4's timings at the lab shape (bf16) and K1's at the
-    headline (f32)."""
+    """K4 against pack_pairs_ref bit for bit, its output in a NaN-filled
+    block, its refusal of a misaligned view block, and K4, K1, the plain
+    version and index_select timed in turns. Returns K4's timings at the lab
+    shape (bf16) and K1's at the headline (f32)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     b, l, c, s = LAB["batch"], LAB["views"], LAB["channels"], LAB["size"]
     cases = [((b, l, c, s, s), torch.bfloat16), ((b, l, c, s, s), torch.float32),
@@ -466,12 +627,15 @@ def phase_dma(fusion, fusion_dma, card: str) -> dict:
     max_err = 0.0
     for shape, dtype in cases:
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        got, want = fusion_dma.pack_pairs_dma_cuda(x), fusion_dma.pack_pairs_ref(x)
+        address = poison((shape[0], shape[1] // 2, 2 * shape[2], *shape[3:]), dtype)
+        got = fusion_dma.pack_pairs_dma_cuda(x)
+        check_poisoned(got, address, f"pack_pairs_dma_cuda at {shape} {dtype}")
+        want = fusion_dma.pack_pairs_ref(x)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"pack_pairs_dma_cuda != pack_pairs_ref at {shape} {dtype}")
         max_err = max(max_err, (got.float() - want.float()).abs().max().item())
-        print(f"[dma] torch.equal(K4, plain) at {shape} {dtype}: True")
+        print(f"[dma] torch.equal(K4, plain) at {shape} {dtype}, output in a NaN-filled block: True")
     bad = torch.randn((2, 5, 3, 7, 5), generator=g, device="cuda").to(torch.bfloat16)
     try:
         fusion_dma.pack_pairs_dma_cuda(bad)
@@ -488,19 +652,24 @@ def phase_dma(fusion, fusion_dma, card: str) -> dict:
     for kernel, dtype in (("K4", torch.bfloat16), ("K1", torch.float32)):  # lab shape, headline
         x = torch.randn((b, l, c, s, s), generator=g, device="cuda").to(dtype)
         moved = paired_bytes(x)
-        times = {name: [] for name in routes}
+        bound = bound_ms(moved)
+        ms = graph_times_ms({name: (lambda fn=fn: fn(x)) for name, fn in routes.items()})
+        calls = {name: [] for name in routes}
         for fn in routes.values():
             cuda_times_ms(lambda: fn(x), 0, 3)
         for _ in range(20):  # in turns, so drift hits every route alike
             for name, fn in routes.items():
-                times[name] += cuda_times_ms(lambda: fn(x), 1, 0)
-        ms = {name: statistics.median(ts) for name, ts in times.items()}
-        print(f"[dma] {tuple(x.shape)} {str(dtype)[6:]}: " + ", ".join(
-            f"{name} {t:.4f} ms ({moved / t / 1e6:.1f} GB/s, {bound_ms(moved) / t:.1%} of the "
-            f"byte bound)" for name, t in ms.items())
-            + f"; bound {bound_ms(moved):.4f} ms ({moved / 1e9:.3f} GB); median of 20; {card}")
-        rows[kernel] = {"ms": ms[kernel], "plain_ms": ms["plain"], "bound_ms": bound_ms(moved),
-                        "bound_by": "bytes", "library_ms": ms["index_select"]}
+                calls[name] += cuda_times_ms(lambda: fn(x), 1, 0)
+        call_ms = {name: statistics.median(ts) for name, ts in calls.items()}
+        print(f"[dma] {tuple(x.shape)} {str(dtype)[6:]}: device time per call (CUDA graph of "
+              f"{GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays, in turns): " + ", ".join(
+                  f"{name} {t:.4f} ms ({moved / t / 1e6:.1f} GB/s, {bound / t:.1%} of the byte "
+                  f"bound)" for name, t in ms.items())
+              + "; one call with its host part (median of 20, in turns): " + ", ".join(
+                  f"{name} {t:.4f} ms" for name, t in call_ms.items())
+              + f"; bound {bound:.4f} ms ({moved / 1e9:.3f} GB); {card}")
+        rows[kernel] = {"ms": ms[kernel], "call_ms": call_ms[kernel], "plain_ms": ms["plain"],
+                        "bound_ms": bound, "bound_by": "bytes", "library_ms": ms["index_select"]}
     return {"pack_dma": {"max_abs_err": max_err, **rows["K4"]}, "pack": rows["K1"]}
 
 
@@ -511,13 +680,13 @@ def phase_lab4(fusion, lanczos_fused, card: str, tmp: str) -> dict:
     from highresnet_tpu_torch.models.hrnet import HRNet
 
     batches = (16, 32)
-    reset_counts(fusion, lanczos_fused)
+    reset_counts()
     report = fusion_lab4.main([
         "--device", "cuda", "--out", os.path.join(tmp, "fusion_lab4_torch.json"),
         "--iters", str(LAB_ITERS), "--warmup", str(LAB_WARMUP),
         "--fwd-batches", *map(str, batches),
     ])
-    counts = read_counts(fusion, lanczos_fused)
+    counts = read_counts()
     print(f"[lab4] report {json.dumps(report)}")
     calls = LAB_ITERS + LAB_WARMUP
     rounds = int(np.log2(LAB["views"]))
@@ -566,6 +735,66 @@ def phase_lab4(fusion, lanczos_fused, card: str, tmp: str) -> dict:
     return counts
 
 
+def phase_fills(fusion, fusion_dma, lanczos_fused) -> None:
+    """Each wrapper, run once under torch.profiler with deterministic
+    algorithms on, launches its kernel and nothing else (no NaN fill); the
+    forward of LanczosShift is that one kernel too. Then, at each kernel's
+    timed output shape, the fill's device time and the host time of
+    torch.empty against empty_output; each wrapper's host time per call."""
+    from highresnet_tpu_torch.kernels.alloc import empty_output
+
+    if not torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("setup_device left deterministic algorithms off")
+    control = device_ops(lambda: torch.empty((8, 1024), device="cuda"))
+    if not any("fill" in name.lower() for name in control):
+        raise AssertionError(f"torch.empty launched no fill ({control}): the check cannot see one")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((8, TRAIN["views"], 64, 64, 64), generator=g, device="cuda")
+    cot = torch.randn((8, TRAIN["views"] // 2, 128, 64, 64), generator=g, device="cuda")
+    img = torch.rand((8, 192, 192), generator=g, device="cuda", requires_grad=True)
+    shift = (torch.rand((8, 2), generator=g, device="cuda") * 6 - 3).requires_grad_()
+    wrappers = {
+        "K1 pack_pairs_cuda": (lambda: fusion.pack_pairs_cuda(x), "pack_pairs"),
+        "K2 unpack_pairs_cuda": (lambda: fusion.unpack_pairs_cuda(cot, TRAIN["views"]), "unpack_pairs"),
+        "K3 lanczos_shift_cuda": (lambda: lanczos_fused.lanczos_shift_cuda(img.detach(), shift.detach()),
+                                  "lanczos_shift"),
+        "K3 LanczosShift.apply forward": (lambda: lanczos_fused.LanczosShift.apply(img, shift),
+                                          "lanczos_shift"),
+        "K4 pack_pairs_dma_cuda": (lambda: fusion_dma.pack_pairs_dma_cuda(x), "pack_pairs_dma"),
+    }
+    for what, (fn, kernel) in wrappers.items():
+        ops = device_ops(fn)
+        print(f"[fills] {what}: device operations {[name[:80] for name in ops]} (torch.empty "
+              f"alone launches {control[0][:80]!r})")
+        if len(ops) != 1 or f"{kernel}_kernel" not in ops[0]:
+            raise AssertionError(f"{what} launched {ops}, not its kernel alone")
+
+    # what the fill cost each wrapper at its timed shape: torch.empty of the output
+    b, l, s = HEADLINE["batch"], HEADLINE["views"], HEADLINE["size"]
+    outputs = {"K1 (8, 8, 128, 128, 128) f32": ((b, l // 2, 128, s, s), torch.float32),
+               "K2 (8, 8, 64, 64, 64) f32": ((8, TRAIN["views"], 64, 64, 64), torch.float32),
+               "K3 (8, 192, 192) f32": ((8, 192, 192), torch.float32),
+               "K4 (8, 8, 128, 128, 128) bf16": ((b, l // 2, 128, s, s), torch.bfloat16)}
+    ms = graph_times_ms({what: (lambda shape=shape, dtype=dtype: torch.empty(
+        shape, dtype=dtype, device="cuda")) for what, (shape, dtype) in outputs.items()})
+    print("[fills] torch.empty of each timed output under deterministic algorithms, the fill "
+          f"the wrapper no longer launches (device time per call, CUDA graph of {GRAPH_CALLS} "
+          f"calls, median of {GRAPH_REPLAYS} replays): " + ", ".join(
+              f"{what} {t:.4f} ms" for what, t in ms.items()))
+    # and what each allocation costs the host, the fill's launch included
+    allocs = {"torch.empty": lambda shape, dtype: torch.empty(shape, dtype=dtype, device="cuda"),
+              "empty_output": lambda shape, dtype: empty_output(shape, dtype, "cuda")}
+    parts = []
+    for what, (shape, dtype) in outputs.items():
+        us = {name: host_us(lambda: alloc(shape, dtype)) for name, alloc in allocs.items()}
+        parts.append(f"{what} " + " vs ".join(f"{name} {t:.2f} us" for name, t in us.items()))
+    print(f"[fills] host time per allocation of each timed output (CPU clock, median of "
+          f"{HOST_CALLS} calls, the card drained between calls): " + "; ".join(parts))
+    print("[fills] host time per wrapper call, the same timer (K1, K4 on (8, 8, 64, 64, 64) f32, "
+          "K2 on (8, 4, 128, 64, 64) f32, K3 on (8, 192, 192) f32): " + ", ".join(
+              f"{what} {host_us(fn):.2f} us" for what, (fn, _) in wrappers.items()))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
@@ -601,6 +830,7 @@ def main() -> None:
     measured["pack_dma"] = dma["pack_dma"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lab4_") as tmp:
         lab = phase_lab4(fusion, lanczos_fused, card, tmp)
+    phase_fills(fusion, fusion_dma, lanczos_fused)
 
     sources = {
         "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),

@@ -156,8 +156,11 @@ def build_model(config: Mapping[str, Any], device) -> HRNet:
     return HRNet(config["network"], device=device, dtype=dtype, decoder_dtype=decoder_dtype)
 
 
-def load_model(config: Mapping[str, Any], checkpoint: str, device="cpu") -> HRNet:
-    """Build HRNet and load ``HRNet.pth`` (a file, or a directory holding it)."""
+def load_model(config: Mapping[str, Any], checkpoint: str, device="cuda") -> HRNet:
+    """Build HRNet and load ``HRNet.pth`` (a file, or a directory holding it).
+
+    A CUDA device that is missing raises before the checkpoint is read."""
+    device = resolve_device(device)
     model = build_model(config, device)
     model.load_state_dict(load_weights(checkpoint))
     return model.eval()

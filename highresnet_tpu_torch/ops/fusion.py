@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from highresnet_tpu_torch.kernels.alloc import empty_output
+
 LAUNCHES = {"pack": 0, "unpack": 0}
 
 
@@ -69,7 +71,7 @@ def pack_pairs_cuda(x: torch.Tensor) -> torch.Tensor:
     """K1 on the current stream: (B, L, C, H, W) -> (B, L//2, 2C, H, W)."""
     _check(x, "pack_pairs_cuda")
     b, l, c, h, w = x.shape
-    out = torch.empty((b, l // 2, 2 * c, h, w), dtype=x.dtype, device=x.device)
+    out = empty_output((b, l // 2, 2 * c, h, w), x.dtype, x.device)
     if out.numel() == 0:
         return out
     _launch("hrn_pack_pairs", x, out, l, c * h * w * x.element_size())
@@ -86,7 +88,7 @@ def unpack_pairs_cuda(g: torch.Tensor, l: int) -> torch.Tensor:
     b, half, c2, h, w = g.shape
     if c2 % 2 or l // 2 != half:
         raise ValueError(f"unpack_pairs_cuda: {tuple(g.shape)} is not a pack of {l} views")
-    out = torch.empty((b, l, c2 // 2, h, w), dtype=g.dtype, device=g.device)
+    out = empty_output((b, l, c2 // 2, h, w), g.dtype, g.device)
     if out.numel() == 0:
         return out
     _launch("hrn_unpack_pairs", g, out, l, c2 // 2 * h * w * g.element_size())

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from highresnet_tpu_torch.kernels.alloc import empty_output
 from highresnet_tpu_torch.ops.fusion import _check, _launch, pack_pairs_ref
 
 __all__ = [
@@ -78,7 +79,7 @@ def pack_pairs_dma_cuda(x: torch.Tensor) -> torch.Tensor:
     _check(x, "pack_pairs_dma_cuda")
     block_bytes = check_aligned(x)
     b, l, c, h, w = x.shape
-    out = torch.empty((b, l // 2, 2 * c, h, w), dtype=x.dtype, device=x.device)
+    out = empty_output((b, l // 2, 2 * c, h, w), x.dtype, x.device)
     if out.numel() == 0:
         return out
     _launch("hrn_pack_pairs_dma", x, out, l, block_bytes)

@@ -64,7 +64,7 @@ def evaluate_model(
     return_images: bool = False,
     prebuilt_batches=None,
     sample_rng=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """Validation score over full-resolution scenes.
 

@@ -1,6 +1,7 @@
 """The port's tests that need an NVIDIA GPU: its four CUDA kernels against
-their plain versions, and a GPU training run that repeats, and resumes, bit
-for bit. Every test skips without a card.
+their plain versions, the profiler's view of their wrappers (no NaN fill of
+the output, one kernel for the warp's forward), and a GPU training run that
+repeats, and resumes, bit for bit. Every test skips without a card.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on a
 GPU machine without JAX. ``tests/conftest.py`` imports JAX, so skip it there:
@@ -97,17 +98,69 @@ def test_lanczos_shift_cuda_matches_plain(shape, cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     img = torch.rand(shape, generator=gen, device=cuda)
     shift = (torch.rand((shape[0], 2), generator=gen, device=cuda) * 6 - 3).requires_grad_()
+    shift.data[0] = torch.tensor([1.0, -2.0])  # integer shifts: the sinc guard
     before = lanczos_fused.LAUNCHES
     got = lanczos_fused.lanczos_shift_fused(img.requires_grad_(), shift)
     assert lanczos_fused.LAUNCHES == before + 1
     want = lanczos_fused.lanczos_shift_ref(img, shift)
     assert (got - want).abs().max().item() <= 1e-5
+    direct = lanczos_fused.lanczos_shift_cuda(img.detach(), shift.detach())
+    assert lanczos_fused.LAUNCHES == before + 2 and torch.equal(direct, got)
+    zero = lanczos_fused.lanczos_shift_cuda(img.detach(), torch.zeros_like(shift.detach()))
+    assert (zero - img).abs().max().item() <= 1e-6
     g = torch.randn(shape, generator=gen, device=cuda)
     gi, gs = torch.autograd.grad(got, (img, shift), g)
     wi, ws = torch.autograd.grad(want, (img, shift), g)
     assert torch.equal(gi, wi) and torch.equal(gs, ws)
     with pytest.raises(ValueError, match="H, W >= 4"):
         lanczos_fused.lanczos_shift_fused(img[:, :3], shift)
+    with pytest.raises(ValueError, match="shift must be"):
+        lanczos_fused.lanczos_shift_cuda(img.detach(), shift.detach()[:, :1].contiguous())
+
+
+@pytest.fixture
+def deterministic(cuda):
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield cuda
+    torch.use_deterministic_algorithms(before)
+
+
+def _device_ops(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_no_wrapper_launches_a_fill(deterministic):
+    """Under deterministic algorithms torch.empty launches a NaN fill; each
+    kernel's wrapper launches its kernel alone, since its output comes from
+    kernels.alloc.empty_output."""
+    cuda = deterministic
+    assert any("fill" in name.lower() for name in _device_ops(lambda: torch.empty(64, device=cuda)))
+    x = torch.randn((2, 5, 8, 4, 4), device=cuda)
+    g = torch.randn((2, 2, 16, 4, 4), device=cuda)
+    img, shift = torch.rand((2, 8, 12), device=cuda), torch.rand((2, 2), device=cuda)
+    for fn, kernel in ((lambda: fusion.pack_pairs_cuda(x), "pack_pairs_kernel"),
+                       (lambda: fusion.unpack_pairs_cuda(g, 5), "unpack_pairs_kernel"),
+                       (lambda: lanczos_fused.lanczos_shift_cuda(img, shift), "lanczos_shift_kernel"),
+                       (lambda: fusion_dma.pack_pairs_dma_cuda(x), "pack_pairs_dma_kernel")):
+        ops = _device_ops(fn)
+        assert len(ops) == 1 and kernel in ops[0], ops
+
+
+@pytest.mark.cuda
+def test_lanczos_shift_forward_is_one_kernel(deterministic):
+    cuda = deterministic
+    img = torch.rand((8, 192, 192), device=cuda, requires_grad=True)
+    shift = (torch.rand((8, 2), device=cuda) * 6 - 3).requires_grad_()
+    ops = _device_ops(lambda: lanczos_fused.LanczosShift.apply(img, shift))
+    assert len(ops) == 1 and "lanczos_shift_kernel" in ops[0], ops
 
 
 def _final_state(run_dir):

@@ -1,7 +1,8 @@
 """The port's Lanczos warp against the JAX package: taps, the plain warp at
 int_range 0 and 4, the Pallas kernel in interpret mode, and gradients for
 image and shift through ``jax.vjp``; plus the fused warp's dispatch and its
-autograd Function on the CPU.
+autograd Function on the CPU, the kernel wrapper's argument checks, and a
+NumPy copy of the tap arithmetic inside the kernel.
 
 The CUDA kernel (K3) runs only on a card: its test is in
 ``test_torch_cuda.py`` (``python3 chip_smoke.py`` checks it end to end).
@@ -83,7 +84,7 @@ def test_fused_warp_on_cpu_is_the_plain_version():
     assert torch.equal(got, lanczos_fused.lanczos_shift_ref(ti, ts))
     assert lanczos_fused.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
-        lanczos_fused.lanczos_shift_cuda(ti.detach(), torch.zeros(2, 7), torch.zeros(2, 7))
+        lanczos_fused.lanczos_shift_cuda(ti.detach(), ts.detach())
 
     # the autograd Function's backward is the plain version's VJP
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(img.shape).astype(np.float32))
@@ -96,3 +97,59 @@ def test_fused_warp_on_cpu_is_the_plain_version():
     dbl = (torch.from_numpy(img).double().requires_grad_(),
            torch.from_numpy(shift).double().requires_grad_())
     assert torch.autograd.gradcheck(lanczos_fused.LanczosShift.apply, dbl)
+
+
+@pytest.mark.parametrize("img_shape, shift_shape, match", [
+    ((2, 8, 6), (2, 2), "CUDA"),
+    ((2, 8, 6), (2, 3), r"shift must be \(2, 2\)"),
+    ((2, 8, 6), (3, 2), r"shift must be \(2, 2\)"),
+    ((2, 8, 6), (2,), r"shift must be \(2, 2\)"),
+    ((2, 8, 6), (2, 2, 1), r"shift must be \(2, 2\)"),
+    ((8, 6), (2, 2), r"\(B, H, W\)"),
+])
+def test_lanczos_shift_cuda_checks_arguments(img_shape, shift_shape, match):
+    """K3's wrapper takes (img (B, H, W), shift (B, 2)) on the card; on CPU
+    tensors, or with a shift of another shape, it raises before any build."""
+    before = lanczos_fused.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        lanczos_fused.lanczos_shift_cuda(torch.zeros(img_shape), torch.zeros(shift_shape))
+    assert lanczos_fused.LAUNCHES == before
+
+
+def kernel_taps_np(d: np.ndarray) -> np.ndarray:
+    """csrc/lanczos_shift.cu's tap arithmetic in float32, in the kernel's
+    order: (N,) offsets -> (N, 7) normalised taps."""
+    d = np.asarray(d, np.float32)
+    raw = []
+    for t in range(7):
+        pi_x = np.float32(3.14159265) * (np.float32(t - 3) - d)
+        pi_x = np.where(pi_x == 0, np.float32(1e-6), pi_x).astype(np.float32)
+        pi_x3 = pi_x / np.float32(3.0)
+        raw.append((np.sin(pi_x) / pi_x) * (np.sin(pi_x3) / pi_x3))
+    total = raw[0]
+    for r in raw[1:]:
+        total = total + r  # summed in order, t = 0..6
+    out = np.stack([r / total for r in raw], axis=-1)
+    assert out.dtype == np.float32
+    return out
+
+
+def test_in_kernel_taps_match_jax_lanczos_kernel():
+    """The CPU oracle for the taps K3 computes: within 1e-6 of the JAX
+    package's lanczos_kernel at shifts in ±3, exact integers included (the
+    1e-6 guard at the sinc singularity)."""
+    rng = np.random.default_rng(4)
+    d = np.concatenate([
+        np.arange(-3, 4, dtype=np.float32),  # integers: one tap hits pi_x == 0
+        np.array([0.5, -0.5, 2.5, -2.5, 1e-7, -1e-7, 2.9999998, -2.9999998], np.float32),
+        rng.uniform(-3, 3, 64).astype(np.float32),
+    ])
+    got = kernel_taps_np(d)
+    want = np.asarray(jax_lanczos_kernel(jnp.asarray(d)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-6)
+    # at an integer shift the taps are the unit impulse at that offset
+    np.testing.assert_allclose(got[3], np.eye(7, dtype=np.float32)[3], atol=1e-6)
+    # and the port's plain lanczos_kernel, the warp's CPU route, agrees too
+    port = lanczos.lanczos_kernel(torch.from_numpy(d)).numpy()
+    np.testing.assert_allclose(got, port, rtol=0, atol=1e-6)

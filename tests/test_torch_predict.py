@@ -184,6 +184,25 @@ def test_cuda_request_without_a_card_raises(served):
         Model(load_config(served[0]), device="cuda")
 
 
+def test_load_model_defaults_to_the_card_and_raises_without_one(served, monkeypatch, tmp_path):
+    """load_model and evaluate_model run on the card unless the caller asks
+    for the CPU; with no card, load_model raises before reading anything."""
+    import inspect
+
+    from highresnet_tpu.config import load_config
+    from highresnet_tpu_torch.eval.evaluator import load_model
+    from highresnet_tpu_torch.train.evaluation import evaluate_model
+
+    cfg = load_config(served[0])
+    assert inspect.signature(load_model).parameters["device"].default == "cuda"
+    assert inspect.signature(evaluate_model).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_model(cfg, str(tmp_path / "no_such_checkpoint"))
+    model = load_model(cfg, _export(served), device="cpu")
+    assert next(model.parameters()).device.type == "cpu" and not model.training
+
+
 def test_submission_honours_single_view_policy(served, tmp_path):
     """The JAX writer drops single_view_policy; the port's passes it on."""
     from highresnet_tpu.config import load_config

@@ -6,10 +6,13 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
   1. card name and power limit (nvidia-smi), torch/CUDA versions, device setup;
   2. build the CUDA kernels from ``highresnet_tpu_torch/csrc``;
   3. [pack] the pair-pack kernel (K1) against its plain PyTorch version:
-     ``torch.equal`` at the headline shape (f32, bf16) and at odd shapes (K1
-     is timed in [dma]);
+     ``torch.equal`` at the headline shape, at every fusion round of the
+     flagship's training step (batch 32, 32 px), validation forward (batch
+     4, 128 px) and served scene (batch 1, 128 px), and at odd shapes, each
+     in f32 and bf16 (K1 is timed in [dma]);
   4. [unpack] the unpack kernel (K2) the same way at the first-round training
-     shape and at odd view counts, then gradients through ``PackPairs`` on
+     shape, at every round's cotangent of the flagship step's backward
+     (32, L/2, 128, 32, 32), and at odd view counts, then gradients through ``PackPairs`` on
      the card against the CPU plain version's autograd, bit for bit; K2
      timed in turns with K1 on a pack that moves the same bytes, the plain
      version and ``index_select``;
@@ -17,7 +20,9 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      its plain version (limit 1e-5) at the training shape and two odd
      shapes, zero shift, gradients of ``LanczosShift`` against the plain
      autograd, the in-kernel taps against ``lanczos_kernel``, and K3 and the
-     plain version (taps included) timed;
+     plain version (taps included) timed; then K3 at the serving shapes
+     (7, 384, 384) (x8 TTA's alignment of one scene) and (1, 384, 384)
+     (registered scoring), checked and timed the same way;
   6. [predict] the predict CLI end to end on a synthetic 16-view 128 px
      dataset with the full-width network of configs/config.json and seeded
      random weights; K1's launches in that run; the first scene's SR and
@@ -48,6 +53,23 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      timed output shape, the host time of ``torch.empty`` against
      ``kernels.alloc.empty_output`` at the same shapes, and each wrapper's
      host time per call.
+ 12. [flagship] the measured-best recipe (configs/flagship.json,
+     flagship_ft_rp.json, flagship_ft_varl.json at full width: batch 32, 16
+     views, 32 px patches, register 64, warp_int_range 4) on a synthetic
+     misaligned 16-view 128 px set, the cuts printed (data, epochs 2/1/1,
+     register_warmup_epochs 1): the 400-step ShiftNet warm-start twice from
+     one seed (bit-identical, RMSE, ms per step, no kernel launched), its
+     fused-warp branch (warp_int_range 0, use_pallas_warp) for 20 steps with
+     K3 once per step and its pairs against the plain warp's, the
+     three stages chained through ``cli.train --run-dir`` (K1 and K2 launches
+     against the steps and val forwards), stage 1's train step on the GPU
+     against the port's CPU path, then ``cli.predict`` on the last
+     stage plain, ``--tta 8``, ``--registered``, with two checkpoints and
+     with ``--top-k 1`` (the bicubic route), each with its launches per
+     scene (K3 once per scene on the aligned and registered paths); the
+     registered train step of stage 1 timed; ms per scene of each serving
+     path and x8 TTA's alignment alone; one val scene under ``--tta 8`` and
+     ``--registered`` on the GPU against the port's CPU path.
 Each bit-exact or tolerance check of K1-K4 reads an output that the kernel
 wrote into a block just filled with NaN and freed (``poison``), so a byte
 the kernel leaves unwritten shows. Kernel times: ``ms`` is device time per
@@ -55,11 +77,12 @@ call, from a CUDA graph of 20 back-to-back calls replayed between two
 events (median of 10 replays); ``call_ms`` is one call between two events,
 the wrapper's host part included (median of 20), the series of the earlier
 runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
-Then one JSON line with the kernels (``launches`` sums the predict, train and
-lab runs; ``bound_ms`` is the least time the card could take for the timed
-call, from its bytes at 3.35 TB/s and its operations at the peak rate of
-their type; ``library_ms`` is one PyTorch call computing the same function,
-or null), the card line again, and last the device JSON line.
+Then one JSON line with the kernels (``launches`` sums the predict, train,
+lab and flagship runs, the fused warm-start included; K3's entry also holds its serving shapes;
+``bound_ms`` is the least time the card could take for the timed call,
+from its bytes at 3.35 TB/s and its operations at the peak rate of their
+type; ``library_ms`` is one PyTorch call computing the same function, or
+null), the card line again, and last the device JSON line.
 Needs CUDA; it imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -94,6 +117,18 @@ SPLIT_CONV_RTOL = 2.0 ** -6
 # bf16 vs f32 forward, tests/test_precision.py's envelope on [0.1, 0.9]-normalised
 # outputs, here also relative to max|f32|
 BF16_RMS, BF16_MAX = 3e-3, 1.5e-2
+SERVING_WARPS = ((7, 384, 384), (1, 384, 384))  # K3 on the serving paths (one 384 px scene)
+# the measured-best recipe (configs/flagship*.json) on a misaligned synthetic
+# set: 36 scenes give 32 train scenes (one batch of 32) and 4 val scenes
+FLAGSHIP = dict(views=16, size=128, scenes_per_channel=18, hr_shift_sigma=1.25,
+                epochs={"flagship": 2, "flagship_ft_rp": 1, "flagship_ft_varl": 1},
+                register_warmup_epochs=1)
+# (batch, px) of the flagship's forwards, 64 channels into the fusion: a
+# training step on 32 px patches, a validation forward (eval_batch_size 4)
+# and a served scene on whole 128 px views
+FLAGSHIP_FORWARDS = ((32, 32), (4, 128), (1, 128))
+FUSED_WARMUP_STEPS = 20  # the warm-start's fused-warp branch, driven at warp_int_range 0
+SERVE_REPS = 3  # ms per scene: median over the val scenes, each served this many times
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 10  # kernel times: calls per CUDA graph, replays timed
 HOST_CALLS = 200  # host time of an allocation: calls timed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -215,12 +250,24 @@ def unpack_index_select(g: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
     return torch.index_select(g.view(b, 2 * half, c2 // 2, h, w), 1, inverse)
 
 
+def fusion_rounds(batch: int, views: int, channels: int, size: int) -> list[tuple]:
+    """The (B, L, C, H, W) pack inputs of every fusion round of one forward."""
+    shapes = []
+    while views >= 2:
+        shapes.append((batch, views, channels, size, size))
+        views //= 2
+    return shapes
+
+
 def phase_pack(fusion) -> dict:
-    """K1 against pack_pairs_ref: bit-exact at the headline and odd shapes,
-    its output in a NaN-filled block (timed in [dma])."""
+    """K1 against pack_pairs_ref: bit-exact at the headline, at every fusion
+    round of the flagship's training, validation and serving forwards, and at
+    odd shapes, its output in a NaN-filled block (timed in [dma])."""
     g = torch.Generator(device="cuda").manual_seed(0)
     b, l, s = HEADLINE["batch"], HEADLINE["views"], HEADLINE["size"]
-    shapes = [(b, l, 64, s, s), (2, 5, 3, 7, 5), (3, 5, 1, 3, 3), (1, 3, 5, 5, 5)]
+    flagship = [shape for batch, size in FLAGSHIP_FORWARDS
+                for shape in fusion_rounds(batch, FLAGSHIP["views"], 64, size)]
+    shapes = [(b, l, 64, s, s), *flagship, (2, 5, 3, 7, 5), (3, 5, 1, 3, 3), (1, 3, 5, 5, 5)]
     max_err = 0.0
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -266,7 +313,12 @@ def phase_unpack(fusion, card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     # (B, L, 2C, H, W): the cotangent of an L-view pack is (B, L//2, 2C, H, W)
     first_round = (8, TRAIN["views"], 128, 64, 64)
-    cases = [(first_round, torch.float32), (first_round, torch.bfloat16),
+    # the flagship step's backward: every round's cotangent (32, L/2, 128, 32, 32)
+    fb, fs = FLAGSHIP_FORWARDS[0]
+    flagship = [((fb, l, 2 * c, h, w), torch.float32)
+                for _, l, c, h, w in fusion_rounds(fb, FLAGSHIP["views"], 64, fs)]
+    cases = [(first_round, torch.float32), (first_round, torch.bfloat16), *flagship,
+             ((fb, FLAGSHIP["views"], 128, fs, fs), torch.bfloat16),
              ((2, 5, 6, 7, 5), torch.float32), ((3, 3, 2, 3, 3), torch.bfloat16),
              ((1, 3, 10, 5, 5), torch.float32), ((1, 3, 10, 5, 5), torch.bfloat16)]
     max_err = 0.0
@@ -403,8 +455,32 @@ def phase_warp(lanczos_fused, card: str) -> dict:
           f"call with its host part {call_ms:.4f} ms (median of 20); bound {bound * 1e3:.3f} us "
           f"({moved / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; {bound_by}); no single PyTorch call; "
           f"{card}")
+    serving = {}
+    for shape in SERVING_WARPS:  # TTA x8's alignment of one scene, registered scoring
+        img = torch.rand(shape, generator=g, device="cuda")
+        shift = torch.rand((shape[0], 2), generator=g, device="cuda") * 6 - 3
+        address = poison(shape, torch.float32)
+        got = lanczos_fused.lanczos_shift_cuda(img, shift)
+        check_poisoned(got, address, f"lanczos_shift_cuda at {shape}")
+        err = (got - lanczos_fused.lanczos_shift_ref(img, shift)).abs().max().item()
+        max_err = max(max_err, err)
+        if not err <= WARP_ATOL:
+            raise AssertionError(f"lanczos kernel disagrees with its plain version at {shape}")
+        t = graph_times_ms({"K3": lambda: lanczos_fused.lanczos_shift_cuda(img, shift),
+                            "plain": lambda: lanczos_fused.lanczos_shift_ref(img, shift)})
+        s_moved = 2 * img.numel() * img.element_size() + shift.numel() * shift.element_size()
+        s_flops = 2 * 2 * 7 * img.numel()
+        s_bound = bound_ms(s_moved, s_flops)
+        s_by = "bytes" if s_moved / HBM_BYTES_PER_S >= s_flops / F32_FLOPS else "operations"
+        print(f"[warp] serving shape {shape} f32, shifts in ±3 px, output in a NaN-filled block: "
+              f"max|kernel - plain| {err:.3e} (limit {WARP_ATOL}); device time per call (CUDA "
+              f"graph of {GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays, in turns) K3 "
+              f"{t['K3']:.4f} ms, plain {t['plain']:.4f} ms; bound {s_bound * 1e3:.3f} us "
+              f"({s_moved / 1e6:.2f} MB; {s_by}, {s_bound / t['K3']:.1%} of it); {card}")
+        serving[str(shape)] = {"max_abs_err": err, "ms": t["K3"], "plain_ms": t["plain"],
+                               "bound_ms": s_bound, "bound_by": s_by}
     return {"max_abs_err": max_err, "ms": ms["K3"], "call_ms": call_ms, "plain_ms": ms["plain"],
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "serving": serving}
 
 
 def phase_predict(fusion, lanczos_fused, card: str) -> dict:
@@ -567,6 +643,24 @@ def _step_pieces(cfg: dict, device: str, batch):
     return state, build_train_step(cfg), batch_to_device(batch, torch.device(device))
 
 
+def step_gpu_vs_cpu(cfg: dict, batch, tag: str) -> None:
+    """One train step from one init and batch on the GPU and on the port's
+    CPU path, dropout off: the loss and the gradient norm within their limits."""
+    metrics = {}
+    for device in ("cuda", "cpu"):
+        state, step, args = _step_pieces(cfg, device, batch)
+        _, m = step(state, *args)
+        metrics[device] = {k: v.item() for k, v in m.items()}
+    d_loss = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"]) / abs(metrics["cpu"]["loss"])
+    d_norm = abs(metrics["cuda"]["grad_norm"] - metrics["cpu"]["grad_norm"]) / metrics["cpu"]["grad_norm"]
+    print(f"[{tag}] one step, batch {tuple(batch.lrs.shape)}, GPU vs CPU port, dropout off: loss "
+          f"{metrics['cuda']['loss']:.7f} vs {metrics['cpu']['loss']:.7f} (rel {d_loss:.2e}, limit "
+          f"{STEP_LOSS_RTOL}), grad_norm {metrics['cuda']['grad_norm']:.7f} vs "
+          f"{metrics['cpu']['grad_norm']:.7f} (rel {d_norm:.2e}, limit {STEP_GRAD_NORM_RTOL})")
+    if d_loss > STEP_LOSS_RTOL or d_norm > STEP_GRAD_NORM_RTOL:
+        raise AssertionError(f"[{tag}] GPU and CPU train steps of the port disagree")
+
+
 def phase_train_step(card: str, tmp: str) -> None:
     """One step from one init and batch on the GPU and on the port's CPU
     path; then the step timed with the kernels and with the plain versions."""
@@ -577,20 +671,8 @@ def phase_train_step(card: str, tmp: str) -> None:
         cfg = json.load(f)
     t = cfg["training"]
     scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
-    batch = next(iter(build_train_loader(t, scenes, seed=0)))
-    metrics = {}
-    for device in ("cuda", "cpu"):
-        state, step, args = _step_pieces(cfg, device, batch)
-        _, m = step(state, *args)
-        metrics[device] = {k: v.item() for k, v in m.items()}
-    d_loss = abs(metrics["cuda"]["loss"] - metrics["cpu"]["loss"]) / abs(metrics["cpu"]["loss"])
-    d_norm = abs(metrics["cuda"]["grad_norm"] - metrics["cpu"]["grad_norm"]) / metrics["cpu"]["grad_norm"]
-    print(f"[train] one step, GPU vs CPU port, dropout off: loss {metrics['cuda']['loss']:.7f} vs "
-          f"{metrics['cpu']['loss']:.7f} (rel {d_loss:.2e}, limit {STEP_LOSS_RTOL}), grad_norm "
-          f"{metrics['cuda']['grad_norm']:.7f} vs {metrics['cpu']['grad_norm']:.7f} "
-          f"(rel {d_norm:.2e}, limit {STEP_GRAD_NORM_RTOL})")
-    if d_loss > STEP_LOSS_RTOL or d_norm > STEP_GRAD_NORM_RTOL:
-        raise AssertionError("GPU and CPU train steps of the port disagree")
+    batch = next(iter(build_train_loader(t, scenes, seed=0, data_dir=cfg["paths"]["prefix"])))
+    step_gpu_vs_cpu(cfg, batch, "train")
 
     plain = json.loads(json.dumps(cfg))
     plain["network"]["recursive"]["use_pallas_pack"] = False
@@ -795,6 +877,328 @@ def phase_fills(fusion, fusion_dma, lanczos_fused) -> None:
               f"{what} {host_us(fn):.2f} us" for what, (fn, _) in wrappers.items()))
 
 
+STAGES = tuple(FLAGSHIP["epochs"])
+# kernel launches per served scene: K1 once per fusion round of each forward,
+# K3 once per scene on the aligned and registered paths (one batched warp)
+SERVE_MODES = {
+    "plain": ([], {"pack": 1, "lanczos": 0}),
+    "tta8": (["--tta", "8"], {"pack": 8, "lanczos": 1}),
+    "registered": (["--registered"], {"pack": 1, "lanczos": 1}),
+    "ensemble": ([], {"pack": 2, "lanczos": 1}),
+    "bicubic": (["--top-k", "1"], {"pack": 0, "lanczos": 0}),
+}
+
+
+def flagship_configs(tmp: str) -> tuple[dict, dict]:
+    """configs/flagship*.json on a synthetic misaligned 16-view 128 px set,
+    each stage's init_params_from pointed at the stage before; returns the
+    config paths and run dirs by stage."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.data import make_synthetic_dataset
+
+    root = make_synthetic_dataset(
+        os.path.join(tmp, "data"), n_scenes_per_channel=FLAGSHIP["scenes_per_channel"],
+        n_views=FLAGSHIP["views"], lr_size=FLAGSHIP["size"], seed=0, splits=("train",),
+        hr_shift_sigma=FLAGSHIP["hr_shift_sigma"],
+    )
+    paths, runs = {}, {}
+    for i, name in enumerate(STAGES):
+        cfg = load_config(str(REPO / "configs" / f"{name}.json"))
+        t = cfg["training"]
+        cfg["paths"].update(prefix=root, checkpoint_dir=os.path.join(tmp, "runs"), tb_log_file_dir="")
+        t["num_epochs"] = FLAGSHIP["epochs"][name]
+        if t.get("register_warmup_epochs"):
+            t["register_warmup_epochs"] = FLAGSHIP["register_warmup_epochs"]
+        if i:
+            t["init_params_from"] = runs[STAGES[i - 1]]
+        runs[name] = os.path.join(tmp, "runs", name)
+        paths[name] = os.path.join(tmp, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(cfg, f)
+    print(f"[flagship] configs/{{{','.join(STAGES)}}}.json as shipped (batch 32, 16 views, 32 px "
+          f"patches, register 64, warp_int_range 4, D4 augmentation, range_penalty and "
+          f"variable_views_p as configured, warm-start 400 steps), cut: data = "
+          f"{2 * FLAGSHIP['scenes_per_channel']} synthetic misaligned train scenes (hr_shift_sigma "
+          f"{FLAGSHIP['hr_shift_sigma']}, {FLAGSHIP['views']} views of {FLAGSHIP['size']} px, HR "
+          f"{3 * FLAGSHIP['size']} px); num_epochs {'/'.join(map(str, FLAGSHIP['epochs'].values()))}"
+          f" (from 300/100/100); register_warmup_epochs {FLAGSHIP['register_warmup_epochs']} "
+          f"(from 30), so both the unregistered and the registered step run")
+    return paths, runs
+
+
+def flagship_warmstart(cfg_path: str, card: str) -> dict:
+    """The stage-1 warm-start (``maybe_warmstart_shiftnet``) twice from the
+    same seed: bit-identical ShiftNets, no kernel launched (warp_int_range 4
+    takes the plain extended warp), final RMSE and ms per step. Then its
+    fused-warp branch (warp_int_range 0, use_pallas_warp) for a few steps,
+    K3 once per step, whose launches it returns; and the pairs that branch
+    warps against the plain warp's."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.data import discover_scenes, train_val_split
+    from highresnet_tpu_torch.train.pretrain import hr_crop_pool, warm_start_pairs
+    from highresnet_tpu_torch.train.setup import maybe_warmstart_shiftnet
+    from highresnet_tpu_torch.train.state import create_train_state
+
+    cfg = load_config(cfg_path)
+    t = cfg["training"]
+    scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
+    train_list, _ = train_val_split(scenes, t["val_proportion"], seed=1)
+    steps, seed = t["shiftnet_warmup_steps"], t["seed"]
+    runs = []
+    reset_counts()
+    for _ in range(2):
+        state = create_train_state(cfg, "cuda", torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rmse = maybe_warmstart_shiftnet(state, t, train_list, seed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        runs.append((rmse, ms, {k: v.detach().clone() for k, v in state.shiftnet.state_dict().items()}))
+    counts = read_counts()
+    same = all(torch.equal(v, runs[1][2][k]) for k, v in runs[0][2].items())
+    print(f"[flagship] warm-start: {steps} steps, {t['register_size']} px crops, batch 32, sigma "
+          f"{t['shiftnet_warmup_sigma']}: final shift RMSE {runs[0][0]:.4f} and {runs[1][0]:.4f} px "
+          f"(zero-init predicts 0: RMSE about sigma), {runs[0][1]:.3f} and {runs[1][1]:.3f} ms/step "
+          f"(host clock, the HR crops' read included, sync at the end); the second run from the "
+          f"same seed bit-identical: {same}; launches {counts}; {card}")
+    if not same:
+        raise AssertionError("two warm-starts from one seed ended apart")
+    if not runs[0][0] < t["shiftnet_warmup_sigma"]:
+        raise AssertionError(f"the warm-start did not learn: RMSE {runs[0][0]}")
+    if any(counts.values()):
+        raise AssertionError(f"the warm-start at warp_int_range 4 launched kernels: {counts}")
+
+    fused = {**t, "warp_int_range": 0, "use_pallas_warp": True,
+             "shiftnet_warmup_steps": FUSED_WARMUP_STEPS}
+    state = create_train_state(cfg, "cuda", torch.Generator().manual_seed(seed))
+    reset_counts()
+    rmse = maybe_warmstart_shiftnet(state, fused, train_list, seed)
+    counts = read_counts()
+    want = {"pack": 0, "unpack": 0, "lanczos": FUSED_WARMUP_STEPS, "pack_dma": 0}
+    pool = torch.from_numpy(hr_crop_pool(train_list, t["register_size"])).cuda()
+    g = torch.Generator().manual_seed(6)
+    idx = torch.randint(len(pool), (t["batch_size"],), generator=g).cuda()
+    d = (torch.rand((t["batch_size"], 2), generator=g) * 6 - 3).cuda()
+    err = (warm_start_pairs(pool, idx, d, 0, True) - warm_start_pairs(pool, idx, d, 0, False)).abs()
+    err = err.max().item()
+    print(f"[flagship] warm-start's fused branch (warp_int_range 0, use_pallas_warp): "
+          f"{FUSED_WARMUP_STEPS} steps, final shift RMSE {rmse:.4f} px, launches {counts} "
+          f"(expected {want}); its pairs ({t['batch_size']}, 2, {t['register_size']}, "
+          f"{t['register_size']}) against the plain warp's, shifts in ±3 px: max|diff| {err:.3e} "
+          f"(limit {WARP_ATOL})")
+    if counts != want:
+        raise AssertionError(f"the fused warm-start launched {counts}, not {want}")
+    if not (np.isfinite(rmse) and err <= WARP_ATOL):
+        raise AssertionError("the fused warm-start's warp disagrees with the plain warp")
+    return counts
+
+
+def flagship_train(paths: dict, runs: dict) -> dict:
+    """The three stages through cli.train, chained by init_params_from; K1 on
+    every forward, K2 on every backward, K3 none (warp_int_range 4)."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.cli import train
+    from highresnet_tpu_torch.data import discover_scenes, train_val_split
+
+    rounds = int(np.log2(FLAGSHIP["views"]))
+    totals = dict.fromkeys(("pack", "unpack", "lanczos", "pack_dma"), 0)
+    for name in STAGES:
+        cfg = load_config(paths[name])
+        t = cfg["training"]
+        reset_counts()
+        out = train.main(["--config", paths[name], "--run-dir", runs[name], "--device", "cuda"])
+        counts = read_counts()
+        scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
+        train_list, val = train_val_split(scenes, t["val_proportion"], seed=1)
+        epochs = t["num_epochs"]
+        steps = epochs * -(-len(train_list) // t["batch_size"])
+        val_forwards = epochs * -(-len(val) // t["eval_batch_size"])
+        want = {"pack": rounds * (steps + val_forwards), "unpack": rounds * steps, "lanczos": 0,
+                "pack_dma": 0}
+        print(f"[flagship] cli.train {name}: {steps} steps, {val_forwards} val forwards, init from "
+              f"{t.get('init_params_from') or 'the seed'}; launches {counts} (expected {want}); "
+              f"last epoch loss {out['train_loss']}, best score {out['best_score']} (epoch "
+              f"{out['best_epoch']})")
+        if counts != want:
+            raise AssertionError(f"kernel launches in {name} {counts} != {want}")
+        if not (np.isfinite(out["train_loss"]) and np.isfinite(out["best_score"])):
+            raise AssertionError(f"non-finite train loss or val score in {name}")
+        if not os.path.isfile(os.path.join(runs[name], "best", "ShiftNet.pth")):
+            raise AssertionError(f"{name} wrote no best/ShiftNet.pth")
+        for k in totals:
+            totals[k] += counts[k]
+    return totals
+
+
+def flagship_step_time(cfg_path: str, card: str) -> None:
+    """Stage 1's registered train step (batch 32, 16 views, 32 px patches,
+    register 64, the plain extended warp) on one loader batch: on the GPU
+    (K1 and K2 at the flagship's shapes) against the port's CPU path, then
+    timed."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.data import discover_scenes, train_val_split
+    from highresnet_tpu_torch.train.epoch import batch_to_device
+    from highresnet_tpu_torch.train.setup import build_train_loader
+    from highresnet_tpu_torch.train.state import create_train_state
+    from highresnet_tpu_torch.train.step import build_train_step
+
+    cfg = load_config(cfg_path)
+    t = cfg["training"]
+    scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
+    train_list, _ = train_val_split(scenes, t["val_proportion"], seed=1)
+    batch = next(iter(build_train_loader(t, train_list, seed=t["seed"],
+                                         data_dir=cfg["paths"]["prefix"])))
+    step_gpu_vs_cpu(cfg, batch, "flagship")
+    state = create_train_state(cfg, "cuda", torch.Generator().manual_seed(t["seed"]))
+    step = build_train_step(cfg)
+    args = batch_to_device(batch, torch.device("cuda"))
+    for _ in range(2):  # warm-up
+        step(state, *args)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    b, l, p = batch.lrs.shape[0], batch.lrs.shape[1], t["patch_size"]
+    print(f"[flagship] registered train step, batch {b} x {l} views x {p} px (SR {3 * p} px, "
+          f"register {t['register_size']}, warp_int_range {t['warp_int_range']}): {ms:.3f} ms/step, "
+          f"{b / ms * 1e3:.1f} scenes/s (median of 10, host clock with sync); {card}")
+
+
+def flagship_model(cfg: dict, runs: dict, mode: str, device: str):
+    """The Model cli.predict builds for ``mode``, served from the last stage."""
+    from highresnet_tpu_torch.eval.evaluator import Model
+
+    model = Model(cfg, device=device)
+    last = runs[STAGES[-1]]
+    if mode == "ensemble":
+        model.load_ensemble([runs[STAGES[-2]], last])
+    elif mode == "registered":
+        model.load_checkpoint_with_shiftnet(last)
+    else:
+        model.load_checkpoint(last)
+        if mode == "tta8":
+            model.enable_tta(transforms=8)
+    return model
+
+
+def tta_member_shifts(model, batch) -> np.ndarray:
+    """The PCC shifts (7, 2) that x8 TTA aligns its members by, on the model's device."""
+    from highresnet_tpu_torch.ops.dihedral import dihedral_fwd, dihedral_inv
+    from highresnet_tpu_torch.registration.search import pcc_align_batch
+
+    x = torch.from_numpy(batch.lrs).to(model.device)
+    a = torch.from_numpy(batch.alphas).to(model.device)
+    with torch.inference_mode():
+        srs = [dihedral_inv(model.hrnet(dihedral_fwd(x, t), a), t) for t in range(8)]
+        return pcc_align_batch(srs[0].repeat(7, 1, 1), torch.cat(srs[1:]))[1].cpu().numpy()
+
+
+def flagship_serve(paths: dict, runs: dict, card: str) -> dict:
+    """cli.predict on the last stage: plain, --tta 8, --registered, the
+    two-member ensemble and the bicubic route (--top-k 1), each with its
+    launches per scene; then ms per scene, and one val scene under --tta 8
+    and --registered on the GPU against the port's CPU path."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.cli import predict
+    from highresnet_tpu_torch.data import collate
+    from highresnet_tpu_torch.eval.evaluator import load_data
+
+    cfg_path = paths[STAGES[-1]]
+    cfg = load_config(cfg_path)
+    rounds = int(np.log2(FLAGSHIP["views"]))
+    totals = dict.fromkeys(("pack", "unpack", "lanczos", "pack_dma"), 0)
+    for mode, (flags, per_scene) in SERVE_MODES.items():
+        checkpoints = [runs[STAGES[-2]], runs[STAGES[-1]]] if mode == "ensemble" else [runs[STAGES[-1]]]
+        reset_counts()
+        table = predict.main(["--config", cfg_path, "--splits", "val", "--device", "cuda",
+                              "--checkpoint", *checkpoints, *flags])
+        counts = read_counts()
+        scores = table["model"].astype(float).to_dict()
+        n = len(scores)
+        want = {"pack": rounds * per_scene["pack"] * n, "unpack": 0,
+                "lanczos": per_scene["lanczos"] * n, "pack_dma": 0}
+        print(f"[flagship] cli.predict {mode} ({' '.join(flags) or 'no flags'}, "
+              f"{len(checkpoints)} checkpoint(s)): {n} val scenes, launches {counts} (expected "
+              f"{want}), scores {scores}")
+        if counts != want:
+            raise AssertionError(f"kernel launches in predict {mode} {counts} != {want}")
+        if not n or not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"predict {mode} gave {scores}")
+        for k in totals:
+            totals[k] += counts[k]
+
+    val = load_data(cfg_path)[1]
+    batches = [collate([s], cfg["training"]["min_L"]) for s in val]
+    for mode in ("plain", "tta8", "registered", "ensemble"):
+        model = flagship_model(cfg, runs, mode, "cuda")
+        registered = mode == "registered"
+        model(batches[0], registered)  # warm-up
+        times = []
+        for _ in range(SERVE_REPS):
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(b, registered)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        print(f"[flagship] serve {mode}: {statistics.median(times):.3f} ms per scene (SR and "
+              f"shift-cPSNR, {FLAGSHIP['views']} views of {FLAGSHIP['size']} px, batch 1, f32; median of "
+              f"{len(times)}: "
+              f"{len(batches)} val scenes x {SERVE_REPS}; host clock with sync); {card}")
+
+    from highresnet_tpu_torch.registration.search import pcc_align_batch
+
+    srs = torch.rand((8, 3 * FLAGSHIP["size"], 3 * FLAGSHIP["size"]),
+                     generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    anchor, members = srs[:1].repeat(7, 1, 1), srs[1:]
+    with torch.inference_mode():
+        align_ms = statistics.median(cuda_times_ms(lambda: pcc_align_batch(anchor, members), 20, 3))
+    print(f"[flagship] x8 TTA's alignment alone (pcc_align_batch, 7 members of "
+          f"{3 * FLAGSHIP['size']} px: FFTs, matrix-DFT zoom, one K3 warp): {align_ms:.3f} ms "
+          f"(one call between two events, median of 20); {card}")
+
+    for mode in ("tta8", "registered"):
+        registered = mode == "registered"
+        gpu, cpu = (flagship_model(cfg, runs, mode, d) for d in ("cuda", "cpu"))
+        sr_gpu, score_gpu = gpu(batches[0], registered)
+        sr_cpu, score_cpu = cpu(batches[0], registered)
+        rel = float(np.max(np.abs(sr_gpu - sr_cpu)) / np.max(np.abs(sr_cpu)))
+        d_db = abs(score_gpu - score_cpu)
+        note = ""
+        if rel > SR_RTOL:  # a PCC shift one zoom step apart moves a member's warp
+            d_gpu, d_cpu = tta_member_shifts(gpu, batches[0]), tta_member_shifts(cpu, batches[0])
+            apart = float(np.max(np.abs(d_gpu - d_cpu)))
+            note = f"; members' PCC shifts differ by up to {apart:.4f} px"
+            if mode != "tta8" or apart <= 1e-6:
+                raise AssertionError(f"{mode}: GPU and CPU SR disagree with the same alignment")
+        print(f"[flagship] {mode}, scene {batches[0].names[0]}, GPU vs CPU port: SR max|diff|/max|cpu| "
+              f"{rel:.3e} (limit {SR_RTOL} where the alignment agrees{note}), shift-cPSNR "
+              f"{score_gpu:.6f} vs {score_cpu:.6f} dB, |diff| {d_db:.2e} dB (limit {SCORE_ATOL_DB}); "
+              f"{card}")
+        if not (np.all(np.isfinite(sr_gpu)) and sr_gpu.shape == (3 * FLAGSHIP["size"],) * 2):
+            raise AssertionError(f"{mode}: bad SR of shape {sr_gpu.shape}")
+        if d_db > SCORE_ATOL_DB:
+            raise AssertionError(f"{mode}: GPU and CPU scores of the port disagree")
+    return totals
+
+
+def phase_flagship(card: str, tmp: str) -> dict:
+    """The measured-best recipe through the port on the card: the warm-start,
+    the three chained stages, and cli.predict's serving paths; returns the
+    kernel launches of the fused warm-start and the cli.train and
+    cli.predict runs."""
+    paths, runs = flagship_configs(tmp)
+    warm = flagship_warmstart(paths[STAGES[0]], card)
+    trained = flagship_train(paths, runs)
+    flagship_step_time(paths[STAGES[0]], card)
+    served = flagship_serve(paths, runs, card)
+    return {k: warm[k] + trained[k] + served[k] for k in trained}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
@@ -831,6 +1235,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lab4_") as tmp:
         lab = phase_lab4(fusion, lanczos_fused, card, tmp)
     phase_fills(fusion, fusion_dma, lanczos_fused)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flagship_") as tmp:
+        flagship = phase_flagship(card, tmp)
 
     sources = {
         "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),
@@ -843,7 +1249,7 @@ def main() -> None:
         "route": "cuda",
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": predicted[key] + trained[key] + lab[key],
+        "launches": predicted[key] + trained[key] + lab[key] + flagship[key],
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

@@ -2,11 +2,14 @@
 
 Usage:
     python -m highresnet_tpu_torch.cli.predict --config configs/config.json \
-        --checkpoint <HRNet.pth or a dir holding it> [--device cuda] \
+        --checkpoint <run dir, HRNet.pth or a dir holding it> [more checkpoints] \
+        [--tta 4|8] [--registered] [--no-ensemble-registration] [--device cuda] \
         [--submission out_dir] [--splits val test]
 
-A JAX run directory (Orbax ``best/``) gets its ``HRNet.pth`` from
-``scripts/export_torch_weights.py``.
+The flags of ``highresnet_tpu.cli.predict`` plus ``--device``. A JAX run
+directory (Orbax ``best/``) gets its ``HRNet.pth`` from
+``scripts/export_torch_weights.py``; ``--registered`` also needs the run's
+``best/ShiftNet.pth``, which only the port's ``cli.train`` writes.
 """
 
 from __future__ import annotations
@@ -22,31 +25,47 @@ def main(argv=None):
         "--checkpoint",
         required=True,
         nargs="+",
-        help="HRNet.pth, or a directory holding it (one checkpoint; ensembles "
-        "are not ported yet)",
+        help="a run dir of the port's cli.train (best/HRNet.pth), HRNet.pth, or a dir "
+        "holding it; pass several for HighRes-net+ ensemble inference (members are "
+        "PCC-registered to the first checkpoint's output frame before averaging — list "
+        "the strongest model first)",
     )
-    parser.add_argument("--no-ensemble-registration", action="store_true",
-                        help="ensemble only (not ported yet)")
-    parser.add_argument("--tta", type=int, default=0, choices=[0, 4, 8],
-                        help="geometric self-ensemble (not ported yet)")
+    parser.add_argument(
+        "--no-ensemble-registration",
+        action="store_true",
+        help="ensemble only: average raw member outputs without aligning them first",
+    )
+    parser.add_argument(
+        "--tta",
+        type=int,
+        default=0,
+        choices=[0, 4, 8],
+        help="geometric self-ensemble: average the model over 4 or 8 dihedral symmetries "
+        "of the input (outputs are PCC-registered to the identity-transform frame before "
+        "averaging; single checkpoint only; 8 requires square inputs)",
+    )
     parser.add_argument("--submission", default=None, help="write submission zip here")
     parser.add_argument("--splits", nargs="*", default=["val"], choices=["train", "val", "test"])
     parser.add_argument("--top-k", type=int, default=-1)
-    parser.add_argument("--registered", action="store_true",
-                        help="ShiftNet-registered scoring (not ported yet)")
+    parser.add_argument(
+        "--registered",
+        action="store_true",
+        help="score with ShiftNet+Lanczos registration before the shift search (loads "
+        "best/ShiftNet.pth beside best/HRNet.pth; BASELINE config #2 protocol)",
+    )
     parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     args = parser.parse_args(argv)
     if not os.path.isfile(args.config):
         parser.error(f"config file not found: {args.config}")
 
-    from highresnet_tpu_torch.eval.evaluator import NOT_PORTED
-
     if len(args.checkpoint) > 1:
-        parser.error(NOT_PORTED["ensemble"])
-    if args.tta:
-        parser.error(NOT_PORTED["tta"])
-    if args.registered:
-        parser.error(NOT_PORTED["registration"])
+        if args.registered:
+            parser.error("--registered (ShiftNet-registered scoring) is not "
+                         "supported with ensemble inference")
+        if args.tta:
+            parser.error("--tta is single-checkpoint only (see Model.enable_tta)")
+    elif args.registered and args.tta:
+        parser.error("--tta cannot be combined with --registered scoring")
 
     from highresnet_tpu_torch.config import load_config
     from highresnet_tpu_torch.eval.evaluator import Model, benchmark, evaluate, load_data
@@ -56,7 +75,14 @@ def main(argv=None):
     device = setup_device(args.device)
     train_ds, val_ds, test_ds, baseline = load_data(args.config, top_k=args.top_k)
     model = Model(config, device=device)
-    model.load_checkpoint(args.checkpoint[0])
+    if len(args.checkpoint) > 1:
+        model.load_ensemble(args.checkpoint, register=not args.no_ensemble_registration)
+    elif args.registered:
+        model.load_checkpoint_with_shiftnet(args.checkpoint[0])
+    else:
+        model.load_checkpoint(args.checkpoint[0])
+        if args.tta:
+            model.enable_tta(transforms=args.tta)
 
     datasets = {"train": train_ds, "val": val_ds, "test": test_ds}
     selected = {s: datasets[s] for s in args.splits}
@@ -64,6 +90,8 @@ def main(argv=None):
         model.forward,
         selected,
         min_l=config["training"]["min_L"],
+        registration=model.registration if args.registered else None,
+        register_size=config["training"].get("register_size", 128),
         single_view_policy=config["training"].get("single_view_policy", "warn"),
     )
     table = benchmark(baseline, scores, part, clearances)

@@ -2,17 +2,18 @@
 
 The counterpart of ``highresnet_tpu/eval/evaluator.py``: ``load_data``,
 ``get_sr_and_score``, ``load_model``, ``evaluate``, ``benchmark`` and the
-``Model`` facade. The SR forward and the shift-search cPSNR both run on the
-model's device.
-
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ShiftNet-registered scoring, checkpoint ensembles, x4/x8 TTA, and
-``single_view_policy="bicubic"`` (it needs JAX's cubic resize, ROADMAP
-hazard H2).
+``Model`` facade, with the forwards behind them: one checkpoint
+(``_Forward``), a checkpoint ensemble (``_EnsembleForward``) and x4/x8
+dihedral TTA (``_TTAForward``), both PCC-registered to their first output
+by default; ShiftNet-registered scoring; and the single-view bicubic route
+through JAX's cubic resize (``ops/resize.py``). Everything runs on the
+model's device: the SR forwards, the PCC alignment (its warp is the Lanczos
+kernel K3 on CUDA), the registered warp (K3) and the shift-search cPSNR.
 
 Two faults of the JAX evaluator are not carried over (ROADMAP hazard H5):
-``Model.set_params`` honours ``training.compute_dtype``, and the
-submission writer honours ``training.single_view_policy``.
+``Model.set_params`` and ``Model.load_checkpoint_with_shiftnet`` honour
+``training.compute_dtype``, and the submission writer honours
+``training.single_view_policy``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import os
 import sys
 import warnings
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -38,18 +39,13 @@ from highresnet_tpu_torch.data import (
 )
 from highresnet_tpu_torch.models.convert import load_weights
 from highresnet_tpu_torch.models.hrnet import HRNet
+from highresnet_tpu_torch.models.shiftnet import ShiftNet, apply_shifts, register_views
+from highresnet_tpu_torch.ops.dihedral import SAFE_SUBGROUP, dihedral_fwd, dihedral_inv
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr
+from highresnet_tpu_torch.ops.resize import resize_cubic
+from highresnet_tpu_torch.registration.search import pcc_align_batch
 from highresnet_tpu_torch.runtime import compute_dtypes, resolve_device
-
-NOT_PORTED = {
-    "registration": "ShiftNet-registered scoring is not ported yet (ROADMAP queue 1, item 5)",
-    "ensemble": "checkpoint ensembles are not ported yet (ROADMAP queue 1, item 8)",
-    "tta": "TTA is not ported yet (ROADMAP queue 1, item 8)",
-    "bicubic": (
-        "single_view_policy='bicubic' is not ported yet: it needs JAX's cubic "
-        "resize (ROADMAP queue 3, hazard H2)"
-    ),
-}
+from highresnet_tpu_torch.train.checkpoint import SHIFTNET_FILE
 
 
 def load_data(config_file_path: str, val_proportion: float = 0.10, top_k: int = -1):
@@ -70,6 +66,23 @@ def load_data(config_file_path: str, val_proportion: float = 0.10, top_k: int = 
     return mk(train_list), mk(val_list), mk(test_dirs), baseline
 
 
+def _device_batch(lrs: np.ndarray, alphas: np.ndarray, device: torch.device):
+    return (torch.from_numpy(np.asarray(lrs, np.float32)).to(device),
+            torch.from_numpy(np.asarray(alphas, np.float32)).to(device))
+
+
+def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> np.ndarray:
+    """Mean of (B, H, W) SR outputs, each first PCC-aligned to ``srs[0]``
+    with ``register``: one alignment call (one K3 launch on CUDA) over
+    the (K-1)·B non-anchor images. K3 takes float32, so each SR is cast."""
+    srs = [sr.to(torch.float32) for sr in srs]
+    if register and len(srs) > 1:
+        anchor = srs[0]
+        aligned, _ = pcc_align_batch(anchor.repeat(len(srs) - 1, 1, 1), torch.cat(srs[1:]))
+        srs = [anchor, *aligned.split(anchor.shape[0])]
+    return torch.stack(srs).mean(dim=0).cpu().numpy()
+
+
 class _Forward:
     """numpy (lrs, alphas) in, numpy SR out; the model runs on its device."""
 
@@ -79,11 +92,55 @@ class _Forward:
 
     def __call__(self, lrs: np.ndarray, alphas: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            sr = self.model(
-                torch.from_numpy(np.asarray(lrs, np.float32)).to(self.device),
-                torch.from_numpy(np.asarray(alphas, np.float32)).to(self.device),
+            return self.model(*_device_batch(lrs, alphas, self.device)).cpu().numpy()
+
+
+class _EnsembleForward:
+    """The mean SR of several weight sets (the paper's HighRes-net+ entry
+    ensembles two models). With ``register`` (default) every member's SR is
+    PCC-aligned to the first member's before averaging: independently
+    trained members settle on output frames O(1 px) apart, so a raw mean
+    blurs (ENSEMBLE_REPORT.json)."""
+
+    def __init__(self, models: Sequence[HRNet], device: torch.device, register: bool = True):
+        self.models = [m.eval() for m in models]
+        self.device = device
+        self.register = register
+
+    def __call__(self, lrs: np.ndarray, alphas: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            x, a = _device_batch(lrs, alphas, self.device)
+            return _register_and_average([m(x, a) for m in self.models], self.register)
+
+
+class _TTAForward:
+    """Geometric self-ensemble around one weight set: the SR of each D4
+    symmetry of the LR stack, the symmetry undone on the output, the mean.
+    With ``register`` (default) the outputs are PCC-aligned to the identity
+    transform's first: the model's O(1 px) output offset is not equivariant
+    under the dihedral action, so a raw mean blurs (TTA_REPORT.json).
+    ``transforms=8`` needs square inputs; 4 uses the shape-safe subgroup."""
+
+    def __init__(self, model: HRNet, device: torch.device, transforms: int = 8,
+                 register: bool = True):
+        if transforms not in (4, 8):
+            raise ValueError(f"transforms must be 4 or 8, got {transforms}")
+        self.model = model.eval()
+        self.device = device
+        self.transforms = transforms
+        self.register = register
+        self.elements = SAFE_SUBGROUP if transforms == 4 else tuple(range(8))
+
+    def __call__(self, lrs: np.ndarray, alphas: np.ndarray) -> np.ndarray:
+        if self.transforms == 8 and lrs.shape[-2] != lrs.shape[-1]:
+            raise ValueError(
+                "x8 TTA requires square inputs (90-degree rotations); "
+                f"got {lrs.shape[-2]}x{lrs.shape[-1]} — use transforms=4"
             )
-            return sr.cpu().numpy()
+        with torch.inference_mode():
+            x, a = _device_batch(lrs, alphas, self.device)
+            srs = [dihedral_inv(self.model(dihedral_fwd(x, t), a), t) for t in self.elements]
+            return _register_and_average(srs, self.register)
 
 
 def warn_out_of_range(sr: np.ndarray, name: str = "", tol: float = 0.3) -> bool:
@@ -107,26 +164,56 @@ def warn_out_of_range(sr: np.ndarray, name: str = "", tol: float = 0.3) -> bool:
     return False
 
 
+def _score(sr: torch.Tensor, batch: Batch) -> float:
+    """shift_cPSNR of the clipped SR against the batch's first HR, on sr's device."""
+    device = sr.device
+    return float(shift_cpsnr(sr.clamp(0.0, 1.0), torch.from_numpy(batch.hrs[0]).to(device),
+                             torch.from_numpy(batch.hr_maps[0]).to(device)))
+
+
+def register_sr(shiftnet: ShiftNet, sr: torch.Tensor, hr: torch.Tensor,
+                register_size: int) -> torch.Tensor:
+    """The registered-scoring warp: ShiftNet's shift of the SR against its HR
+    on their central ``register_size`` crops, applied to the whole SR by
+    ``apply_shifts`` (one (B·L, H, W) = (1, H, W) warp: K3 on CUDA)."""
+    if sr.shape[-1] < register_size:
+        raise ValueError(f"registered eval needs SR >= {register_size}px (got {sr.shape[-1]})")
+    off = (sr.shape[-1] - register_size) // 2
+    crop = slice(off, off + register_size)
+    thetas = register_views(shiftnet, sr[None, None, crop, crop], hr[None, crop, crop])
+    return apply_shifts(sr[None, None], thetas)[0, 0]
+
+
 def get_sr_and_score(
     imset: ImageSet | Batch,
     forward,
     min_l: int = 16,
-    registration=None,
+    registration: Optional[ShiftNet] = None,
+    register_size: int = 128,
     single_view_policy: str = "warn",
 ) -> Tuple[np.ndarray, Optional[float]]:
     """Super-resolve one scene and (if HR exists) its shift_cPSNR.
 
+    With ``registration`` (a ShiftNet on the forward's device, in eval mode)
+    the SR is first registered against its HR and warped before scoring; the
+    integer shift search still runs on top, as in training-time validation.
+
     ``single_view_policy`` governs scenes with exactly one real view: "warn"
-    runs the model and warns (fusion at L=1 measures below bicubic), "model"
-    runs it silently.
+    runs the model and warns (fusion at L=1 measures below bicubic),
+    "bicubic" returns JAX's 3x cubic resize of the clearest view instead,
+    "model" runs the model silently.
     """
-    if registration is not None:
-        raise NotImplementedError(NOT_PORTED["registration"])
     batch = collate([imset], min_l) if isinstance(imset, ImageSet) else imset
+    device = getattr(forward, "device", torch.device("cpu"))
     n_real_views = float(np.sum(np.asarray(batch.alphas[0])))
     if n_real_views <= 1.0 and single_view_policy != "model":
         if single_view_policy == "bicubic":
-            raise NotImplementedError(NOT_PORTED["bicubic"])
+            # the clearest view (read_imageset orders views by clearance)
+            lr = torch.from_numpy(np.asarray(batch.lrs[0, 0], np.float32)).to(device)
+            with torch.inference_mode():
+                sr_t = resize_cubic(lr, (3 * lr.shape[0], 3 * lr.shape[1]))
+                score = None if batch.hrs is None else _score(sr_t, batch)
+            return sr_t.cpu().numpy(), score
         warnings.warn(
             "single-view scene: multi-frame fusion measures below plain "
             "bicubic at L=1 (paper Fig. 1). Set training.single_view_policy="
@@ -138,15 +225,12 @@ def get_sr_and_score(
     warn_out_of_range(sr, name=batch.names[0] if batch.names else "")
     score = None
     if batch.hrs is not None:
-        device = getattr(forward, "device", torch.device("cpu"))
         with torch.inference_mode():
-            score = float(
-                shift_cpsnr(
-                    torch.from_numpy(sr).to(device).clamp(0.0, 1.0),
-                    torch.from_numpy(batch.hrs[0]).to(device),
-                    torch.from_numpy(batch.hr_maps[0]).to(device),
-                )
-            )
+            sr_t = torch.from_numpy(sr).to(device)
+            if registration is not None:
+                hr = torch.from_numpy(batch.hrs[0]).to(device)
+                sr_t = register_sr(registration, sr_t, hr, register_size)
+            score = _score(sr_t, batch)
     return sr, score
 
 
@@ -170,16 +254,18 @@ def evaluate(
     forward,
     datasets: Dict[str, SceneDataset],
     min_l: int = 16,
-    registration=None,
+    registration: Optional[ShiftNet] = None,
+    register_size: int = 128,
     single_view_policy: str = "warn",
 ):
-    """Score every scene in every split. Returns (scores, clearances, part)."""
+    """Score every scene in every split (ShiftNet-registered with
+    ``registration``). Returns (scores, clearances, part)."""
     scores, clearances, part = {}, {}, {}
     for split, ds in datasets.items():
         for i, imset in enumerate(ds):
             _, sc = get_sr_and_score(
                 imset, forward, min_l=min_l, registration=registration,
-                single_view_policy=single_view_policy,
+                register_size=register_size, single_view_policy=single_view_policy,
             )
             scores[imset.name] = sc
             clearances[imset.name] = imset.clearances
@@ -223,7 +309,8 @@ class Model:
         self.config = config
         self.device = resolve_device(device)
         self.hrnet: Optional[HRNet] = None
-        self.forward: Optional[_Forward] = None
+        self.forward = None  # _Forward, _EnsembleForward or _TTAForward
+        self.registration: Optional[ShiftNet] = None  # load_checkpoint_with_shiftnet
 
     @property
     def _training(self) -> Dict[str, Any]:
@@ -241,21 +328,52 @@ class Model:
         self.forward = _Forward(self.hrnet, self.device)
 
     def load_checkpoint_with_shiftnet(self, checkpoint: str):
-        raise NotImplementedError(NOT_PORTED["registration"])
+        """Also load ShiftNet for registered scoring: HRNet from
+        ``best/HRNet.pth`` at ``training.compute_dtype``, ShiftNet from
+        ``best/ShiftNet.pth`` at ``register_size``, in eval mode. Takes a run
+        directory of the port's cli.train or a directory holding both files."""
+        path = next((p for p in (os.path.join(checkpoint, SHIFTNET_FILE),
+                                 os.path.join(checkpoint, "best", SHIFTNET_FILE))
+                     if os.path.isfile(p)), None)
+        if path is None:
+            raise FileNotFoundError(
+                f"{checkpoint} holds no {SHIFTNET_FILE} (nor best/{SHIFTNET_FILE}); registered "
+                "scoring takes a run directory of the port's cli.train"
+            )
+        self.load_checkpoint(checkpoint)
+        shiftnet = ShiftNet(register_size=self._training.get("register_size", 128))
+        shiftnet.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+        self.registration = shiftnet.to(self.device).eval()
 
-    def load_ensemble(self, checkpoints, register: bool = True):
-        raise NotImplementedError(NOT_PORTED["ensemble"])
+    def load_ensemble(self, checkpoints: Sequence[str], register: bool = True):
+        """Average the SR of several checkpoints (HighRes-net+). ``register``
+        aligns every member to the first member's output frame before the
+        mean (``_EnsembleForward``): list the strongest model first."""
+        models = [load_model(self.config, c, self.device) for c in checkpoints]
+        self.hrnet = models[-1]
+        self.forward = _EnsembleForward(models, self.device, register=register)
 
     def enable_tta(self, transforms: int = 8, register: bool = True):
-        raise NotImplementedError(NOT_PORTED["tta"])
+        """Wrap the loaded single-checkpoint forward in x4/x8 dihedral TTA
+        (``_TTAForward``); call after load_checkpoint / set_params. Not
+        available on an ensemble."""
+        if not isinstance(self.forward, _Forward):
+            raise ValueError(
+                "enable_tta requires a single-checkpoint forward "
+                "(load_checkpoint/set_params first; not available on ensembles)"
+            )
+        self.forward = _TTAForward(self.hrnet, self.device, transforms=transforms,
+                                   register=register)
 
     def __call__(self, imset, registered: bool = False):
-        if registered:
-            raise NotImplementedError(NOT_PORTED["registration"])
+        if registered and self.registration is None:
+            raise ValueError("registered scoring needs load_checkpoint_with_shiftnet first")
         return get_sr_and_score(
             imset,
             self.forward,
             min_l=self._training["min_L"],
+            registration=self.registration if registered else None,
+            register_size=self._training.get("register_size", 128),
             single_view_policy=self._training.get("single_view_policy", "warn"),
         )
 

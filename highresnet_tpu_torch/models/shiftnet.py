@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from highresnet_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear
-from highresnet_tpu_torch.ops.lanczos import lanczos_shift_views
+from highresnet_tpu_torch.ops.lanczos_fused import lanczos_shift_fused
 
 WIDTHS = (64, 64, 64, 64, 128, 128, 128, 128)
 POOLS = (False, True, False, True, False, True, False, False)
@@ -118,6 +118,10 @@ def register_views(
 
 
 def apply_shifts(images: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
-    """Warp (B, L, H, W) images by per-view thetas (B, L, 2). The net
-    predicts (dx, dy) and the resampler takes (dy, dx): the last axis flips."""
-    return lanczos_shift_views(images, torch.flip(thetas, dims=(-1,)))
+    """Warp (B, L, H, W) images by per-view thetas (B, L, 2) in one
+    (B·L, H, W) warp: the fused warp (K3 on CUDA, float32), the plain one
+    on the CPU. The net predicts (dx, dy) and the resampler takes (dy, dx):
+    the last axis flips."""
+    b, l, h, w = images.shape
+    shifts = torch.flip(thetas, dims=(-1,)).reshape(b * l, 2)
+    return lanczos_shift_fused(images.reshape(b * l, h, w), shifts).reshape(b, l, h, w)

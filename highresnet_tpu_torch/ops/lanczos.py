@@ -84,10 +84,3 @@ def lanczos_shift(
     ky = lanczos_kernel(shift[:, 0].to(img.dtype), a=a, n=n)  # (B, n)
     kx = lanczos_kernel(shift[:, 1].to(img.dtype), a=a, n=n)
     return separable_pass(img, ky, kx)
-
-
-def lanczos_shift_views(img: torch.Tensor, shift: torch.Tensor, a: int = 3, n: int = 7):
-    """Shift a (B, L, H, W) stack by per-view offsets (B, L, 2)."""
-    b, l, h, w = img.shape
-    out = lanczos_shift(img.reshape(b * l, h, w), shift.reshape(b * l, 2), a=a, n=n)
-    return out.reshape(b, l, h, w)

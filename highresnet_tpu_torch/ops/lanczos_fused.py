@@ -14,6 +14,8 @@ The counterpart of ``highresnet_tpu/ops/lanczos_pallas.py``:
   (img, shift), as the JAX package's ``_pallas_bwd`` reuses the XLA VJP.
 - ``lanczos_shift_fused``: dispatch by the tensor's device: CPU -> plain
   version, CUDA -> ``LanczosShift`` (the kernel, or raise).
+- ``training_warp``: the one choice of warp that the train step and the
+  ShiftNet warm-start share.
 
 ``LAUNCHES`` counts kernel launches.
 """
@@ -92,3 +94,16 @@ def lanczos_shift_fused(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     if img.device.type == "cpu":
         return lanczos_shift_ref(img, shift)
     return LanczosShift.apply(img, shift)
+
+
+def training_warp(img: torch.Tensor, shift: torch.Tensor, int_range: int = 0,
+                  fused: bool = False) -> torch.Tensor:
+    """The warp of the train step and the ShiftNet warm-start: ``int_range > 0``
+    takes the plain extended-range warp (no kernel, as in the JAX package);
+    otherwise ``fused`` (``training.use_pallas_warp``) takes the fused warp
+    and the plain warp is used without it."""
+    if int_range:
+        return lanczos_shift(img, shift, int_range=int_range)
+    if fused:
+        return lanczos_shift_fused(img, shift)
+    return lanczos_shift(img, shift)

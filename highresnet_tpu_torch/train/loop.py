@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from highresnet_tpu_torch.data import discover_scenes, read_baseline_cpsnr, train_val_split
+from highresnet_tpu_torch.data.pipeline import EpochCache
 from highresnet_tpu_torch.runtime import resolve_device
 from highresnet_tpu_torch.train.checkpoint import CheckpointManager, resume_run
 from highresnet_tpu_torch.train.epoch import run_train_epoch, warn_warp_window
@@ -70,8 +71,8 @@ def train_and_get_best_model(
         raise FileNotFoundError(f"no scenes under {data_dir}/train/(RED|NIR)")
     train_list, val_list = train_val_split(scene_dirs, t["val_proportion"], seed=1)
 
-    pieces = build_models_and_steps(config, device, seed=seed)
-    loader = build_train_loader(t, train_list, seed=seed)
+    loader = build_train_loader(t, train_list, seed=seed, data_dir=data_dir)
+    pieces = build_models_and_steps(config, device, seed=seed, train_list=train_list)
     state, eval_step, eval_batch = pieces.state, pieces.eval_step, pieces.eval_batch
 
     # the val set is collated once with a seeded rng (deterministic score);
@@ -120,6 +121,8 @@ def train_and_get_best_model(
     tracker.seed(host_copy({"params": state.eval_params, "batch_stats": state.batch_stats}))
     state, start_epoch = resume_run(ckpt, state, tracker, scheduler)
     loader.epoch = start_epoch - 1  # the sampling an uninterrupted run would draw
+    if isinstance(loader, EpochCache):  # and the variant it would build next
+        loader.loader.epoch = start_epoch - 1
 
     steps_done = 0
     train_loss = None

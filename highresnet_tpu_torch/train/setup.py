@@ -1,38 +1,36 @@
 """Training-run setup: the train loader, the models, the state and the steps.
 
-The counterpart of ``highresnet_tpu/train/setup.py`` on one device. The
-loader is the JAX package's own ``BatchLoader`` (host code, JAX-free).
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``training.mesh`` and multi-device data parallelism,
-``training.epoch_cache_variants``, ``training.init_params_from`` and the
-ShiftNet warm-start ``training.shiftnet_warmup_steps``.
+The counterpart of ``highresnet_tpu/train/setup.py`` on one device:
+
+- ``build_train_loader``: the port's ``BatchLoader``, wrapped in the mmap
+  ``EpochCache`` when ``training.epoch_cache_variants > 0``, under the JAX
+  package's cache key (one process, the local batch the whole batch);
+- ``build_models_and_steps``: the seeded train state, the weights of
+  ``training.init_params_from`` (another run's ``best/``), the ShiftNet
+  warm-start (``training.shiftnet_warmup_steps``), and the train/eval steps.
+
+Refused with ``NotImplementedError`` naming the ROADMAP item:
+``training.mesh`` (multi-device training).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from highresnet_tpu_torch.data import BatchLoader
+from highresnet_tpu_torch.data.pipeline import EpochCache
+from highresnet_tpu_torch.train.checkpoint import HRNET_FILE, SHIFTNET_FILE, CheckpointManager
+from highresnet_tpu_torch.train.epoch import warp_window_px
+from highresnet_tpu_torch.train.pretrain import hr_crop_pool, pretrain_shiftnet
 from highresnet_tpu_torch.train.state import TrainState, create_train_state
 from highresnet_tpu_torch.train.step import build_eval_step, build_train_step
 
 NOT_PORTED = {
     "mesh": "training.mesh (multi-device training) is not ported yet (ROADMAP queue 1, item 9)",
-    "epoch_cache_variants": (
-        "training.epoch_cache_variants (the mmap epoch cache) is not ported yet "
-        "(ROADMAP queue 1, item 7)"
-    ),
-    "init_params_from": (
-        "training.init_params_from (fine-tune from a run's best/) is not ported yet "
-        "(ROADMAP queue 1, item 7)"
-    ),
-    "shiftnet_warmup_steps": (
-        "training.shiftnet_warmup_steps (the ShiftNet warm-start, train/pretrain.py) is "
-        "not ported yet (ROADMAP queue 1, item 7)"
-    ),
 }
 
 
@@ -43,8 +41,10 @@ def check_supported(t: Dict[str, Any]) -> None:
             raise NotImplementedError(message)
 
 
-def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int) -> BatchLoader:
-    return BatchLoader(
+def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int, data_dir: str):
+    """The train loader; an ``EpochCache`` over it with epoch_cache_variants > 0,
+    under ``epoch_cache_dir`` or ``<data_dir>/.epoch_cache``."""
+    loader = BatchLoader(
         train_list,
         batch_size=t["batch_size"],
         min_l=t["min_L"],
@@ -59,6 +59,21 @@ def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int) -
         augment=t.get("augment_dihedral", False),
         variable_views_p=float(t.get("variable_views_p", 0.0) or 0.0),
     )
+    cache_variants = int(t.get("epoch_cache_variants", 0) or 0)
+    if cache_variants <= 0:
+        return loader
+    # the JAX key with one process (h0) that keeps its batches (d0)
+    proto_key = (
+        f"b{t['batch_size']}_L{t['min_L']}_k{t['n_views']}_p{t['patch_size']}"
+        f"_c{int(t.get('create_patches', True))}_sh{int(t.get('shuffle', True))}"
+        f"_d0_s{seed}_h0_n{len(train_list)}"
+        f"_a{int(t.get('augment_dihedral', False))}_be{t['beta']:g}"
+        f"_vv{float(t.get('variable_views_p', 0.0) or 0.0):g}"
+    )
+    cache_dir = os.path.join(
+        t.get("epoch_cache_dir") or os.path.join(data_dir, ".epoch_cache"), proto_key
+    )
+    return EpochCache(loader, cache_dir, n_variants=cache_variants)
 
 
 class RunPieces(NamedTuple):
@@ -70,14 +85,75 @@ class RunPieces(NamedTuple):
     eval_batch: int
 
 
-def build_models_and_steps(config: Dict[str, Any], device: torch.device, *, seed: int) -> RunPieces:
-    """The train state (models drawn from ``seed``) and the train/eval steps.
+@torch.no_grad()
+def _restart_ema(state: TrainState, model_names=("hrnet", "shiftnet")) -> None:
+    """Point the EMA of the named models at their current weights."""
+    if state.ema is None:
+        return
+    for name in model_names:
+        for k, p in getattr(state, name).named_parameters():
+            state.ema[name][k].copy_(p)
+
+
+def load_init_params(state: TrainState, run_dir: str) -> None:
+    """Fine-tune start: both models' weights and ShiftNet's BatchNorm
+    statistics from ``run_dir``'s ``best/``, the EMA restarted there. The
+    optimizer stays fresh; the schedule and epoch count are the new run's."""
+    best = os.path.join(run_dir, "best")
+    missing = [f for f in (HRNET_FILE, SHIFTNET_FILE) if not os.path.isfile(os.path.join(best, f))]
+    if missing:
+        raise FileNotFoundError(
+            f"training.init_params_from={run_dir!r}: {best} holds no {' or '.join(missing)}. "
+            "It takes a run directory of the port's cli.train; a JAX run directory (Orbax "
+            "best/) has no such files (scripts/export_torch_weights.py writes HRNet.pth only)"
+        )
+    restored = CheckpointManager(run_dir).load_best()
+    state.hrnet.load_state_dict(restored["params"]["hrnet"])
+    state.shiftnet.load_state_dict({**restored["params"]["shiftnet"], **restored["batch_stats"]})
+    _restart_ema(state)
+
+
+def maybe_warmstart_shiftnet(state: TrainState, t: Dict[str, Any], train_list: List[str],
+                             seed: int) -> Optional[float]:
+    """The ShiftNet warm-start of ``training.shiftnet_warmup_steps`` (registered
+    runs only), from the global train list with generator ``seed + 1``, on
+    the warp window the registered loss uses; the EMA's ShiftNet restarts at
+    the warm-started point. Returns the final shift RMSE (None: no warm-start)."""
+    steps = int(t.get("shiftnet_warmup_steps", 0) or 0)
+    if steps <= 0 or not t.get("register", True):
+        return None
+    pool = hr_crop_pool(train_list, t.get("register_size", 128))
+    rmse = pretrain_shiftnet(
+        state.shiftnet,
+        pool,
+        torch.Generator().manual_seed(seed + 1),
+        steps=steps,
+        sigma=t.get("shiftnet_warmup_sigma", 1.5),
+        max_shift=warp_window_px(t),
+        warp_int_range=int(t.get("warp_int_range", 0) or 0),
+        use_pallas_warp=bool(t.get("use_pallas_warp", False)),
+    )
+    _restart_ema(state, ("shiftnet",))
+    print(f"shiftnet warm-start: {steps} steps on {len(pool)} HR crops, final shift RMSE "
+          f"{rmse:.3f} px", flush=True)
+    return rmse
+
+
+def build_models_and_steps(config: Dict[str, Any], device: torch.device, *, seed: int,
+                           train_list: List[str]) -> RunPieces:
+    """The train state (models drawn from ``seed``, then ``init_params_from``'s
+    weights and the ShiftNet warm-start) and the train/eval steps.
 
     With ``register_warmup_epochs > 0`` the first epochs use a step built
     with ``register=False`` (the registration curriculum)."""
     t = config["training"]
     check_supported(t)
     state = create_train_state(config, device, torch.Generator().manual_seed(seed))
+    init_from = t.get("init_params_from") or ""
+    if init_from:
+        load_init_params(state, init_from)
+        print(f"init: params loaded from {init_from}/best", flush=True)
+    maybe_warmstart_shiftnet(state, t, train_list, seed)
     train_step = build_train_step(config)
     register_warmup = int(t.get("register_warmup_epochs", 0) or 0)
     warm_train_step = None

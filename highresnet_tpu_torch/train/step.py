@@ -26,8 +26,7 @@ import torch.nn.functional as F
 
 from highresnet_tpu_torch.models.hrnet import HRNet
 from highresnet_tpu_torch.models.shiftnet import ShiftNet
-from highresnet_tpu_torch.ops.lanczos import lanczos_shift
-from highresnet_tpu_torch.ops.lanczos_fused import lanczos_shift_fused
+from highresnet_tpu_torch.ops.lanczos_fused import training_warp
 from highresnet_tpu_torch.ops.losses import LOSS_METRICS, crop_mask, registered_loss
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
 from highresnet_tpu_torch.train.state import TrainState, clip_by_global_norm_, global_norm
@@ -50,11 +49,7 @@ def register_and_warp(
     pairs = torch.stack([hrs[:, crop, crop], srs[:, crop, crop]], dim=1)  # [reference, moving]
     thetas = shiftnet(pairs, generator)
     shifts = torch.flip(thetas, dims=(-1,))  # the net predicts (dx, dy); the warp takes (dy, dx)
-    if warp_int_range:  # extended-range warp: plain path only, as in the JAX package
-        return lanczos_shift(srs, shifts, int_range=warp_int_range), thetas
-    if use_pallas_warp:
-        return lanczos_shift_fused(srs, shifts), thetas
-    return lanczos_shift(srs, shifts), thetas
+    return training_warp(srs, shifts, warp_int_range, use_pallas_warp), thetas
 
 
 def build_train_step(config: Dict[str, Any]) -> Callable:

@@ -99,6 +99,23 @@ def test_fused_warp_on_cpu_is_the_plain_version():
     assert torch.autograd.gradcheck(lanczos_fused.LanczosShift.apply, dbl)
 
 
+@pytest.mark.parametrize("int_range, fused", [(0, False), (0, True), (4, False), (4, True)])
+def test_training_warp_takes_the_train_steps_route(int_range, fused, monkeypatch):
+    """The one choice the train step and the warm-start share: the fused warp
+    only at int_range 0 with use_pallas_warp, the plain warp otherwise; each
+    route equal to JAX's lanczos_shift at that int_range."""
+    img, shift = _inputs(4, max_shift=5.0 if int_range else 3.0)
+    routed = []
+    real = lanczos_fused.lanczos_shift_fused
+    monkeypatch.setattr(lanczos_fused, "lanczos_shift_fused",
+                        lambda i, s: routed.append(True) or real(i, s))
+    got = lanczos_fused.training_warp(torch.from_numpy(img), torch.from_numpy(shift), int_range,
+                                      fused)
+    assert routed == ([True] if fused and not int_range else [])
+    want = np.asarray(jax_lanczos_shift(jnp.asarray(img), jnp.asarray(shift), int_range=int_range))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("img_shape, shift_shape, match", [
     ((2, 8, 6), (2, 2), "CUDA"),
     ((2, 8, 6), (2, 3), r"shift must be \(2, 2\)"),

@@ -21,6 +21,9 @@ from highresnet_tpu.data.synth import make_synthetic_dataset
 
 REPO = Path(__file__).resolve().parents[1]
 PARITY_DB = 0.01
+# the modules the measured-best recipe added: the warm-start, JAX's cubic
+# resize, the dihedral transforms and the PCC alignment
+NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.search")
 
 NET = {
     "encoder": {"in_channels": 2, "num_layers": 1, "kernel_size": 3, "channel_size": 16},
@@ -112,6 +115,7 @@ def test_port_leaves_jax_unimported():
     """Every module of the port, labs included, imports neither JAX nor the
     JAX package (not even its JAX-free host code)."""
     code = (
+        f"NEW = {NEW_MODULES!r}\n"
         "import importlib, pkgutil, sys\n"
         "import highresnet_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(highresnet_tpu_torch.__path__,\n"
@@ -119,6 +123,8 @@ def test_port_leaves_jax_unimported():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "from highresnet_tpu_torch import HRNet, Model, load_config, load_data\n"
+        "for name in NEW:\n"
+        "    assert 'highresnet_tpu_torch.' + name in names, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'orbax', 'highresnet_tpu')]\n"
         "assert not bad, bad\n"
@@ -135,7 +141,8 @@ def test_port_sources_have_no_jax_and_no_torch_compile():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b|torch\.compile", re.M)
     scripts = [REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("profile_torch_*.py"))]
     files = sorted((REPO / "highresnet_tpu_torch").rglob("*.py")) + scripts
-    for module in ("train/loop.py", "train/step.py", "ops/lanczos_fused.py", "cli/train.py"):
+    for module in ("train/loop.py", "train/step.py", "ops/lanczos_fused.py", "cli/train.py",
+                   *(m.replace(".", "/") + ".py" for m in NEW_MODULES)):
         assert REPO / "highresnet_tpu_torch" / module in files, module
     offenders = [str(p) for p in files if pattern.search(p.read_text())]
     assert not offenders
@@ -159,19 +166,22 @@ def test_cpu_model_changes_no_process_setting(served):
             torch.backends.cudnn.benchmark) == before
 
 
-@pytest.mark.parametrize("extra", [
-    ["--registered"],
-    ["--tta", "4"],
-    ["--checkpoint", "a", "b"],
+@pytest.mark.parametrize("extra, message", [
+    (["--checkpoint", "a", "b", "--registered"],
+     "--registered (ShiftNet-registered scoring) is not supported with ensemble inference"),
+    (["--checkpoint", "a", "b", "--tta", "4"], "--tta is single-checkpoint only"),
+    (["--tta", "8", "--registered"], "--tta cannot be combined with --registered scoring"),
 ])
-def test_predict_cli_refuses_what_is_not_ported(served, extra, capsys):
+def test_predict_cli_refuses_what_is_not_ported(served, extra, message, capsys):
+    """The combinations the JAX CLI refuses, with its words, before any
+    checkpoint is read."""
     from highresnet_tpu_torch.cli.predict import main as port_predict
 
     cfg_path, run_dir = served
     argv = ["--config", cfg_path, "--checkpoint", run_dir, "--device", "cpu", *extra]
     with pytest.raises(SystemExit):
         port_predict(argv)
-    assert "ROADMAP" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_cuda_request_without_a_card_raises(served):

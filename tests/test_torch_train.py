@@ -302,9 +302,6 @@ def test_ema_and_unknown_loss(batch):
 
 @pytest.mark.parametrize("key, value", [
     ("mesh", {"data": 2}),
-    ("epoch_cache_variants", 2),
-    ("init_params_from", "some/run"),
-    ("shiftnet_warmup_steps", 10),
 ])
 def test_options_outside_the_slice_raise(train_root, key, value):
     from highresnet_tpu_torch.train.loop import train_and_get_best_model

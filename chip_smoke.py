@@ -70,6 +70,23 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      registered train step of stage 1 timed; ms per scene of each serving
      path and x8 TTA's alignment alone; one val scene under ``--tta 8`` and
      ``--registered`` on the GPU against the port's CPU path.
+ 13. [registration] the registration toolkit on a seeded smooth 384 px
+     field (the HR frame size) with a cloud blob and a 4 px border masked,
+     its template shifted by a known (0.7, -0.4) px (scipy, order 3), and a
+     broadband pair with an exact Fourier shift for PCC; seeded VGG19
+     weights: ``RegistrationSession(device="cuda")`` solves with each of the
+     seven methods at the JAX defaults (7 points, 10 levels; ORB at scale
+     2), each shift held to its limit; the same calls on the port's CPU
+     path (Perceptual Loss at 64 px, 3 points, 3 levels) agree within
+     0.01 px, and the metrics both record at the GPU's shift within 1e-4
+     relative; the MI histogram
+     under deterministic algorithms (GPU counts equal to the CPU's);
+     record_metrics, vote, the nine overlays and the VGG diff heatmap, the
+     session's tensors on the card; ``preprocess_imgset`` on a synthetic
+     16-view scene (GPU against CPU, files written); ms per
+     ``compute_and_apply_shift`` of each method, per grid level of NCC and
+     PL, and ``features_batched`` over 49 x 384 px with its peak memory.
+     No launch of K1-K4 (asserted).
 Each bit-exact or tolerance check of K1-K4 reads an output that the kernel
 wrote into a block just filled with NaN and freed (``poison``), so a byte
 the kernel leaves unwritten shows. Kernel times: ``ms`` is device time per
@@ -1199,6 +1216,262 @@ def phase_flagship(card: str, tmp: str) -> dict:
     return {k: warm[k] + trained[k] + served[k] for k in trained}
 
 
+# [registration]: the toolkit on a 384 px HR-sized frame at the JAX defaults
+REG = dict(size=384, shift=(0.7, -0.4), border=4, points_per_dim=7, max_recursions=10,
+           candidates=49, pm_scale=2, reps=3)
+REG_PL_CPU = dict(size=64, points_per_dim=3, max_recursions=3)  # VGG19 at 384 px is too slow for a CPU
+# |recovered - truth| limits per method, px, set before the first run: the
+# JAX tests' 0.06 for the smooth-metric searches, looser for the binned MI
+# and the pixel-quantised ORB keypoints, 0.01 for PCC on an exact Fourier shift
+REG_LIMITS_PX = {"Fourier": 0.01, "Point Matching": 0.5, "NCC": 0.06, "Perceptual Loss": 0.06,
+                 "SSIM": 0.06, "Mutual Information": 0.25, "Mean L1 Error": 0.06}
+REG_GPU_CPU_PX = 0.01  # each method's shift, GPU vs the port's CPU path
+REG_METRIC_RTOL = 1e-4  # each recorded metric, GPU vs CPU
+METRIC_KEYS = ("ml1e", "pl", "ssim", "nmi", "ncc")
+
+
+def registration_pair(size: int, seed: int = 0) -> dict:
+    """A seeded smooth field, its template shifted by REG["shift"] (scipy,
+    order 3), a 4 px border mask on both and a cloud blob masked out of the
+    reference."""
+    from scipy.ndimage import gaussian_filter, shift as ndi_shift
+
+    rng = np.random.default_rng(seed)
+    field = gaussian_filter(np.kron(rng.random((size // 4, size // 4)), np.ones((4, 4))), 2.0)
+    field = ((field - field.min()) / (field.max() - field.min())).astype(np.float32)
+    template = ndi_shift(field, REG["shift"], mode="constant", order=3).astype(np.float32)
+    border = np.zeros((size, size), np.float32)
+    b = REG["border"]
+    border[b:-b, b:-b] = 1.0
+    clouds = gaussian_filter(rng.standard_normal((size, size)), size / 24)
+    ref_mask = border * (clouds < np.quantile(clouds, 0.85))
+    return dict(ref=field, template=template, ref_mask=ref_mask.astype(np.float32),
+                template_mask=border)
+
+
+def fourier_pair(size: int, seed: int = 7) -> dict:
+    """A broadband image and its exact Fourier-domain shift by REG["shift"]."""
+    rng = np.random.default_rng(seed)
+    img = rng.random((size, size))
+    fy = np.fft.fftfreq(size)[:, None]
+    fx = np.fft.fftfreq(size)[None, :]
+    dy, dx = REG["shift"]
+    moved = np.real(np.fft.ifft2(np.fft.fft2(img) * np.exp(-2j * np.pi * (fy * dy + fx * dx))))
+    ones = np.ones((size, size), np.float32)
+    return dict(ref=img.astype(np.float32), template=moved.astype(np.float32), ref_mask=ones,
+                template_mask=ones)
+
+
+def method_kwargs(method: str, pl_cut: bool = False) -> dict:
+    if method == "Point Matching":
+        return {"scale": REG["pm_scale"]}
+    if method == "Fourier":
+        return {}
+    if pl_cut:
+        return {k: REG_PL_CPU[k] for k in ("points_per_dim", "max_recursions")}
+    return {"points_per_dim": REG["points_per_dim"], "max_recursions": REG["max_recursions"]}
+
+
+def solve(method: str, pair: dict, device: str, extractor, **kwargs):
+    """A fresh session on ``device`` solves ``pair`` with ``method``; returns it."""
+    from highresnet_tpu_torch.registration.session import RegistrationSession
+
+    session = RegistrationSession(device=device, perceptual_model=extractor)
+    session.set_arrays(pair["ref"], pair["template"], pair["ref_mask"], pair["template_mask"])
+    session.compute_and_apply_shift(method, **kwargs)
+    return session
+
+
+def session_ms(session, method: str, **kwargs) -> float:
+    """Host ms per compute_and_apply_shift (record_metrics included), card
+    drained before and after, from the zero shift each time; median of
+    REG["reps"] (the session's first solve is the warm-up)."""
+    times = []
+    for _ in range(REG["reps"]):
+        session.config["current_deltay"] = session.config["current_deltax"] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.compute_and_apply_shift(method, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def vgg_flops(size: int) -> float:
+    """Operations of one VGG19 forward to conv 28 on a size x size image."""
+    from highresnet_tpu_torch.models.vgg import _VGG19_PLAN
+
+    flops, in_ch = 0.0, 3
+    for item in _VGG19_PLAN:
+        if item == "M":
+            size //= 2
+            continue
+        flops += 2.0 * size * size * in_ch * item[0] * 9
+        in_ch = item[0]
+    return flops
+
+
+def registration_timings(pairs: dict, extractor, card: str) -> None:
+    """ms per compute_and_apply_shift of each method, per grid level of NCC
+    and PL (CUDA events), and features_batched over 49 x 384 px."""
+    from highresnet_tpu_torch.registration import search as rs
+    from highresnet_tpu_torch.registration.session import SEARCH_METHODS
+    from highresnet_tpu_torch.runtime import as_tensor
+
+    per_method = {}
+    for method in SEARCH_METHODS:
+        pair = pairs["fourier" if method == "Fourier" else "smooth"]
+        session = solve(method, pair, "cuda", extractor, **method_kwargs(method))
+        per_method[method] = session_ms(session, method, **method_kwargs(method))
+    print(f"[registration] ms per compute_and_apply_shift at {REG['size']} px (host clock, card "
+          f"drained, record_metrics included, median of {REG['reps']} after the first solve): "
+          + ", ".join(f"{m} {ms:.3f}" for m, ms in per_method.items()) + f"; {card}")
+
+    p = pairs["smooth"]
+    ref, rmask, tpl, tmask = (as_tensor(p[k], "cuda") for k in
+                              ("ref", "ref_mask", "template", "template_mask"))
+    center = torch.zeros(2, device="cuda")
+    ppd = REG["points_per_dim"]
+    levels = {
+        "NCC": lambda: torch.argmax(rs._mncc_grid_scores(ref, rmask, tpl, tmask, center, 2.0, ppd)[1]),
+        "PL": lambda: torch.argmin(rs._pl_grid_scores(extractor, ref, rmask, tpl, tmask, center,
+                                                      2.0, ppd)[1]),
+    }
+    level_ms = {name: statistics.median(cuda_times_ms(fn, REG["reps"], 1))
+                for name, fn in levels.items()}
+    stack = tpl[None].expand(REG["candidates"], -1, -1).contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vgg_ms = statistics.median(cuda_times_ms(lambda: extractor.features_batched(stack),
+                                             REG["reps"], 1))
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    flops = REG["candidates"] * vgg_flops(REG["size"])
+    print(f"[registration] one grid level ({ppd}x{ppd} = {ppd * ppd} candidates, warp + score + "
+          f"argmax, CUDA events, median of {REG['reps']}): NCC {level_ms['NCC']:.3f} ms, PL "
+          f"{level_ms['PL']:.3f} ms; features_batched over {REG['candidates']} x {REG['size']} px: "
+          f"{vgg_ms:.3f} ms, {flops / 1e12:.3f} TFLOP, {flops / vgg_ms / 1e9:.1f} TFLOP/s, bound "
+          f"{flops / F32_FLOPS * 1e3:.3f} ms at the f32 peak, peak memory {peak_gib:.2f} GiB "
+          f"above the {base / 2**30:.2f} GiB held before; {card}")
+
+
+def registration_histogram(pair: dict) -> None:
+    """The MI joint histogram under deterministic algorithms on the card:
+    bincount without weights runs and equals the CPU's counts; whether
+    histc and a weighted bincount refuse is printed."""
+    from highresnet_tpu_torch.registration import metrics as rm
+
+    if not torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("[registration] expected deterministic algorithms to be on")
+    args = [pair[k] for k in ("ref", "template", "ref_mask", "template_mask")]
+    gpu = rm.joint_counts(*args, device="cuda")
+    cpu = rm.joint_counts(*args, device="cpu")
+    if not torch.equal(gpu.cpu(), cpu):
+        raise AssertionError("[registration] MI joint counts differ between GPU and CPU")
+    refused = {}
+    x = torch.zeros(4, device="cuda")
+    for name, fn in (("torch.histc", lambda: torch.histc(x, bins=4)),
+                     ("weighted torch.bincount", lambda: torch.bincount(x.long(), weights=x))):
+        try:
+            fn()
+            refused[name] = "runs"
+        except RuntimeError as e:
+            refused[name] = f"raises ({str(e).splitlines()[0][:60]})"
+    print(f"[registration] deterministic mode on: MI joint histogram by bincount (no weights) "
+          f"ran on the card, {int(gpu.sum())} counts equal to the CPU's; on CUDA "
+          + "; ".join(f"{k} {v}" for k, v in refused.items()))
+
+
+def phase_registration(card: str, tmp: str) -> None:
+    """The registration toolkit through RegistrationSession on the card: every
+    search method against a known shift, the metrics, vote, overlays and
+    heatmap; the same calls on the CPU path; preprocess_imgset on a
+    synthetic scene; timings. No kernel of K1-K4 runs here."""
+    from highresnet_tpu_torch.data import make_synthetic_dataset
+    from highresnet_tpu_torch.models.vgg import VGGFeatureExtractor
+    from highresnet_tpu_torch.registration.preprocess import preprocess_imgset
+    from highresnet_tpu_torch.registration.session import OVERLAY_MODES, SEARCH_METHODS
+
+    pairs = {"smooth": registration_pair(REG["size"]), "fourier": fourier_pair(REG["size"])}
+    pl_pair = registration_pair(REG_PL_CPU["size"])
+    extractors = {d: VGGFeatureExtractor(seed=0, device=d) for d in ("cuda", "cpu")}
+    truth = tuple(-v for v in REG["shift"])  # the shift that aligns the template
+    registration_histogram(pairs["smooth"])
+
+    for method in SEARCH_METHODS:
+        pair = pairs["fourier" if method == "Fourier" else "smooth"]
+        t0 = time.perf_counter()
+        gpu = solve(method, pair, "cuda", extractors["cuda"], **method_kwargs(method))
+        gpu_s = time.perf_counter() - t0
+        err = max(abs(a - b) for a, b in zip(gpu.current_shift, truth))
+        print(f"[registration] {method} at {REG['size']} px on the card: shift "
+              f"({gpu.current_shift[0]:+.5f}, {gpu.current_shift[1]:+.5f}) vs truth "
+              f"({truth[0]:+.5f}, {truth[1]:+.5f}), max error {err:.5f} px (limit "
+              f"{REG_LIMITS_PX[method]}), first call {gpu_s:.2f} s; {card}")
+        if not err <= REG_LIMITS_PX[method]:
+            raise AssertionError(f"[registration] {method} missed the known shift")
+        if method == "Perceptual Loss":  # GPU vs CPU at the cut size
+            pair = pl_pair
+            gpu = solve(method, pair, "cuda", extractors["cuda"], **method_kwargs(method, True))
+        cpu = solve(method, pair, "cpu", extractors["cpu"],
+                    **method_kwargs(method, method == "Perceptual Loss"))
+        d_px = max(abs(a - b) for a, b in zip(gpu.current_shift, cpu.current_shift))
+        # metrics at one shift: MI jumps between shifts 1e-3 px apart
+        cpu.config["current_deltay"], cpu.config["current_deltax"] = gpu.current_shift
+        cpu.record_metrics()
+        rels = {k: abs(gpu.history[k][0] - cpu.history[k][-1]) / abs(cpu.history[k][-1])
+                for k in METRIC_KEYS}
+        rel = max(rels.values())
+        size = REG_PL_CPU["size"] if method == "Perceptual Loss" else REG["size"]
+        print(f"[registration] {method} GPU vs CPU port at {size} px: shift |diff| {d_px:.2e} px "
+              f"(limit {REG_GPU_CPU_PX}); metrics recorded at the GPU's shift, max rel diff "
+              f"{rel:.2e} ({max(rels, key=rels.get)}; limit {REG_METRIC_RTOL}): "
+              + ", ".join(f"{k} {gpu.history[k][0]:.6f}" for k in METRIC_KEYS))
+        if not (d_px <= REG_GPU_CPU_PX and rel <= REG_METRIC_RTOL):
+            raise AssertionError(f"[registration] {method}: GPU and CPU paths disagree")
+
+    session = solve("NCC", pairs["smooth"], "cuda", extractors["cuda"], **method_kwargs("NCC"))
+    best = session.current_shift
+    session.nudge(dy=0.5, dx=-0.25)
+    session.record_metrics()
+    voted = session.vote_best_shift()
+    overlays = {mode: session.overlay(mode) for mode in OVERLAY_MODES}
+    heatmap = session.vgg_diff_heatmap()
+    tensors = [session.ref_image, session.ref_mask, session.template_image,
+               session.template_mask, *session.shifted_template()]
+    if not all(t.device.type == "cuda" for t in tensors):
+        raise AssertionError("[registration] the session's tensors left the card")
+    if voted != best:
+        raise AssertionError(f"[registration] vote chose {voted}, not the solved shift {best}")
+    if not all(o.dtype == np.uint8 and o.shape[:2] == (REG["size"],) * 2 for o in overlays.values()):
+        raise AssertionError("[registration] bad overlay")
+    if not (heatmap.ndim == 2 and np.all(np.isfinite(heatmap))):
+        raise AssertionError("[registration] bad VGG diff heatmap")
+    print(f"[registration] record_metrics after a nudge, vote -> {voted} (the solved shift), "
+          f"{len(overlays)} overlays uint8, heatmap {heatmap.shape} finite; images, masks and "
+          f"the shifted template on {session.ref_image.device}")
+
+    root = make_synthetic_dataset(os.path.join(tmp, "data"), n_scenes_per_channel=1, n_views=16,
+                                  lr_size=128, seed=0, splits=("train",))
+    scene = os.path.join(root, "train", sorted(os.listdir(os.path.join(root, "train")))[0])
+    scene = os.path.join(scene, sorted(os.listdir(scene))[0])
+    t0 = time.perf_counter()
+    on_card = preprocess_imgset(scene, out_subdir="aligned_cuda", device="cuda")
+    card_s = time.perf_counter() - t0
+    on_cpu = preprocess_imgset(scene, out_subdir="aligned_cpu", device="cpu")
+    d_px = max(abs(a - b) for k in on_card for a, b in zip(on_card[k], on_cpu[k]))
+    written = sorted(os.listdir(os.path.join(scene, "aligned_cuda")))
+    want = ["REF.png"] + [f"{p}{i:03d}.{e}" for p, e in (("LR", "png"), ("QM", "png"),
+                                                         ("shift", "json")) for i in range(16)]
+    print(f"[registration] preprocess_imgset on {os.path.basename(scene)} (16 views of 128 px, "
+          f"HR 384 px): {len(on_card)} shifts on the card in {card_s:.2f} s, GPU vs CPU max "
+          f"|diff| {d_px:.2e} px (limit {REG_GPU_CPU_PX}); {len(written)} files written; {card}")
+    if sorted(want) != written or d_px > REG_GPU_CPU_PX:
+        raise AssertionError("[registration] preprocess_imgset: files or shifts wrong")
+
+    registration_timings(pairs, extractors["cuda"], card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
@@ -1237,6 +1510,11 @@ def main() -> None:
     phase_fills(fusion, fusion_dma, lanczos_fused)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flagship_") as tmp:
         flagship = phase_flagship(card, tmp)
+    before = read_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registration_") as tmp:
+        phase_registration(card, tmp)
+    if read_counts() != before:
+        raise AssertionError(f"[registration] launched a kernel: {before} -> {read_counts()}")
 
     sources = {
         "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),

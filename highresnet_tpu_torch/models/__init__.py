@@ -2,6 +2,7 @@ from highresnet_tpu_torch.models.convert import (
     hrnet_state_dict_from_flax,
     load_weights,
     shiftnet_state_dict_from_flax,
+    vgg_state_dict_from_flax,
 )
 from highresnet_tpu_torch.models.hrnet import HRNet, lower_median, param_count
 from highresnet_tpu_torch.models.shiftnet import ShiftNet, apply_shifts, register_views
@@ -16,4 +17,5 @@ __all__ = [
     "param_count",
     "register_views",
     "shiftnet_state_dict_from_flax",
+    "vgg_state_dict_from_flax",
 ]

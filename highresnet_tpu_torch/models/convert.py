@@ -1,7 +1,9 @@
 """Weights: flax param trees -> reference state dicts, and HRNet.pth IO.
 
 The inverses of ``highresnet_tpu.models.convert.hrnet_params_from_torch``
-and ``shiftnet_from_torch``, written without JAX: the trees' leaves only
+and ``shiftnet_from_torch``, and of the JAX VGG extractor's torchvision
+loader (``highresnet_tpu/models/vgg.py::_torch_state_to_params``), written
+without JAX: the trees' leaves only
 need to be array-like (numpy arrays, or anything ``np.asarray`` takes).
 Kernels go HWIO -> OIHW; the decoder's deconv kernel (kh, kw, in, out) ->
 ConvTranspose2d's (in, out, kh, kw); dense kernels (in, out) -> (out, in).
@@ -79,6 +81,17 @@ def shiftnet_state_dict_from_flax(
     out["fc1.weight"] = _t(np.asarray(params["fc1"]["kernel"]).T)
     out["fc1.bias"] = _t(params["fc1"]["bias"])
     out["fc2.weight"] = _t(np.asarray(params["fc2"]["kernel"]).T)
+    return out
+
+
+def vgg_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX extractor's params {'conv0', ..., 'conv12'} -> the torchvision
+    state dict that ``models.vgg.VGGFeatureExtractor`` loads."""
+    from highresnet_tpu_torch.models.vgg import CONV_INDICES
+
+    out: Dict[str, torch.Tensor] = {}
+    for i, index in enumerate(CONV_INDICES):
+        _conv(out, f"features.{index}", params[f"conv{i}"])
     return out
 
 

@@ -9,7 +9,12 @@ The counterpart of ``highresnet_tpu/ops/lanczos.py``, with its contract:
   for its own (dy, dx), by a separable 7-tap pass (vertical, then
   horizontal) over a field reflect-padded by 3. ``int_range=K > 0`` first
   moves each image by the rounded integer part of its shift (clipped to
-  ±K, exact) and leaves the 7-tap pass the fractional rest.
+  ±K, exact) and leaves the 7-tap pass the fractional rest;
+- ``lanczos_resample_2d(img, scale)``: an integer-factor Lanczos-a downscale
+  of one (H, W) image (the preprocessing toolkit's HR -> LR-grid
+  projection): a separable ``2·a·scale + 1``-tap pass over a field
+  reflect-padded by its half width, sampled at ``(scale - 1) // 2`` of
+  every ``scale`` pixels.
 
 The reflect pad is built from slices and flips, never ``F.pad(mode=
 "reflect")``: PyTorch's reflection-pad backward on CUDA refuses
@@ -84,3 +89,18 @@ def lanczos_shift(
     ky = lanczos_kernel(shift[:, 0].to(img.dtype), a=a, n=n)  # (B, n)
     kx = lanczos_kernel(shift[:, 1].to(img.dtype), a=a, n=n)
     return separable_pass(img, ky, kx)
+
+
+def lanczos_resample_2d(img: torch.Tensor, scale: int, a: int = 3) -> torch.Tensor:
+    """Lanczos downscale of a float32 (H, W) image by an integer factor."""
+    n = 2 * a * scale + 1
+    taps = torch.arange(n, dtype=img.dtype, device=img.device) - n // 2
+    pi_x = math.pi * (taps / scale)
+    pi_x = torch.where(pi_x == 0, torch.full_like(pi_x, _EPS), pi_x)
+    k = (torch.sin(pi_x) / pi_x) * (torch.sin(pi_x / a) / (pi_x / a))
+    k = k / torch.sum(k)
+
+    h, w = img.shape
+    cols = separable_pass(img[None], k[None], k[None])[0]
+    off = (scale - 1) // 2  # the centre of each scale x scale block
+    return cols[off::scale, off::scale][: math.ceil(h / scale), : math.ceil(w / scale)]

@@ -12,7 +12,8 @@ work reaches the card:
 
 These are process-wide settings, so only entry points (the CLI, scripts)
 call ``setup_device``, and only a CUDA device changes them. Library code
-calls ``resolve_device``, which validates and changes nothing. A CUDA device
+calls ``resolve_device``, which validates and changes nothing, or
+``as_tensor``, which puts host arrays on a device so resolved. A CUDA device
 that is missing raises; nothing falls back to the CPU.
 """
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import os
 import subprocess
 
+import numpy as np
 import torch
 
 CUBLAS_WORKSPACE = ":4096:8"
@@ -65,6 +67,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}; use cuda or cpu")
     return device
+
+
+def as_tensor(x, device="cuda") -> torch.Tensor:
+    """float32 tensor of ``x``: a tensor stays on its own device; anything
+    else (numpy, lists) is copied to ``device`` (``resolve_device``: a CUDA
+    device that is missing raises)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.tensor(np.asarray(x, np.float32), device=resolve_device(device))
 
 
 def compute_dtypes(compute_dtype: str | None) -> tuple[torch.dtype, torch.dtype]:

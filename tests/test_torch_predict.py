@@ -21,9 +21,13 @@ from highresnet_tpu.data.synth import make_synthetic_dataset
 
 REPO = Path(__file__).resolve().parents[1]
 PARITY_DB = 0.01
-# the modules the measured-best recipe added: the warm-start, JAX's cubic
-# resize, the dihedral transforms and the PCC alignment
-NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.search")
+# the modules the measured-best recipe added (the warm-start, JAX's cubic
+# resize, the dihedral transforms, the PCC alignment) and the registration
+# toolkit's
+NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.search",
+               "registration.warp", "registration.metrics", "registration.preprocess",
+               "registration.session", "registration.app", "models.vgg",
+               "cli.export_vgg_weights", "utils.display", "utils.heatmap_canvas")
 
 NET = {
     "encoder": {"in_channels": 2, "num_layers": 1, "kernel_size": 3, "channel_size": 16},

@@ -36,6 +36,20 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      predict CLI; one step on the GPU against the port's CPU path (dropout
      off); the train step timed with the kernels and with the plain versions.
      The predict and train runs launch K4 no time.
+  8b. [dist] data parallelism through ``train_and_get_best_model`` at the
+     same width on its own deterministic 8-view 64 px set (all views in
+     clearance order, whole frames, no shuffle; 2 epochs, eval batch 2):
+     one process at batch 8 first, then two ranks on the one card over
+     Gloo (this script's hidden ``--dist-rank`` mode, HRN_COORDINATOR), each
+     on its shard at 4 scenes a step: per-epoch loss and val score within
+     1e-4 and grad_norm within 1e-3 of the one process, final weights
+     bit-identical on both ranks, rank 0 alone writing the run directory,
+     K1/K2/K3 launches summed over the ranks against the count the steps
+     and val forwards imply, ms per step of both (two ranks time-sharing
+     one card is not a scaling figure); then ``cli.train`` under
+     HRN_COORDINATOR with NCCL, one rank per visible card, its printed
+     loss and val against one process at the same global batch. Any rank's
+     failure or timeout fails the phase.
   9. [dma] the bulk-copy pair pack (K4) against ``pack_pairs_ref``:
      ``torch.equal`` at the lab shape (bf16, f32) and at odd view counts,
      the ``ValueError`` on a misaligned view block, then K4, K1, the plain
@@ -95,7 +109,7 @@ events (median of 10 replays); ``call_ms`` is one call between two events,
 the wrapper's host part included (median of 20), the series of the earlier
 runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
 Then one JSON line with the kernels (``launches`` sums the predict, train,
-lab and flagship runs, the fused warm-start included; K3's entry also holds its serving shapes;
+dist (both ranks), lab and flagship runs, the fused warm-start included; K3's entry also holds its serving shapes;
 ``bound_ms`` is the least time the card could take for the timed call,
 from its bytes at 3.35 TB/s and its operations at the peak rate of their
 type; ``library_ms`` is one PyTorch call computing the same function, or
@@ -712,6 +726,348 @@ def phase_train_step(card: str, tmp: str) -> None:
         print(f"[train] step batch {b} x {l} views x {p} px (SR {3 * p} px, register "
               f"{t.get('register_size', 128)}), {name}: {ms:.3f} ms/step, "
               f"{b / ms * 1e3:.1f} scenes/s (median of 10, host clock with sync); {card}")
+
+
+# [dist]: configs/config.json's width and shapes (batch 8, 8 views, 64 px
+# inputs, register 128, fused warp) on its own synthetic set of 8-view 64 px
+# scenes (16 train, 2 val), 2 epochs. Sampling is deterministic, as in the
+# JAX multi-host test (tests/test_multihost.py): every view in clearance
+# order (n_views -1), whole frames as the 64 px patches, no shuffle, so the
+# ranks' global batches are the one process's batches row for row; two
+# ranks on one card over Gloo hold 4 scenes a step each
+DIST = dict(world=2, epochs=2, eval_batch_size=2, views=8, size=64, scenes_per_channel=9)
+DIST_TIMEOUT_S = 300  # each rank process; a rank that dies fails the phase within it
+# val score, ranks against one process: Adam's first steps move a parameter
+# whose gradient is zero in exact arithmetic (HRNet's output bias under the
+# bias-corrected loss) by about ±lr from reduction-order noise, which differs
+# between batch 4 and 8 on the card; eval clips the SR to [0, 1], so that
+# offset moves the val score (5.45e-04 at epoch 2 in the first card run,
+# where the loss, invariant to it, stayed within 1e-4)
+DIST_VAL_RTOL = 1e-3
+
+
+def dist_config(tmp: str, run_name: str) -> tuple[dict, str]:
+    """configs/config.json for [dist] on its synthetic set (built once)."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.data import make_synthetic_dataset
+
+    root = os.path.join(tmp, "dist_data")
+    if not os.path.isdir(root):
+        make_synthetic_dataset(root, n_scenes_per_channel=DIST["scenes_per_channel"],
+                               n_views=DIST["views"], lr_size=DIST["size"], seed=0,
+                               splits=("train",))
+    cfg = load_config(str(REPO / "configs" / "config.json"))
+    cfg["paths"].update(prefix=root, checkpoint_dir=os.path.join(tmp, run_name),
+                        tb_log_file_dir="")
+    cfg["training"].update(
+        min_L=DIST["views"], n_views=-1, create_patches=False, patch_size=DIST["size"],
+        shuffle=False, use_pallas_warp=True, num_epochs=DIST["epochs"],
+        eval_batch_size=DIST["eval_batch_size"],
+    )
+    path = os.path.join(tmp, f"{run_name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def recorded_train(cfg: dict, run_dir: str, device: str) -> dict:
+    """``train_and_get_best_model`` with its epochs, final state and file
+    writes recorded (the kernel launch counts read around it)."""
+    from highresnet_tpu_torch.parallel import distributed
+    from highresnet_tpu_torch.train import checkpoint, loop
+
+    epochs, states, writes = [], [], []
+    real_epoch, real_atomic = loop.run_train_epoch, checkpoint._atomic
+
+    def epoch(loader, state, *args, **kwargs):
+        state, stats, n = real_epoch(loader, state, *args, **kwargs)
+        epochs.append({**stats, "steps": n})
+        states.append(state)
+        return state, stats, n
+
+    def atomic(path, write):
+        writes.append(path)
+        return real_atomic(path, write)
+
+    loop.run_train_epoch, checkpoint._atomic = epoch, atomic
+    reset_counts()
+    try:
+        out = loop.train_and_get_best_model(cfg, run_dir=run_dir, device=device)
+    finally:
+        loop.run_train_epoch, checkpoint._atomic = real_epoch, real_atomic
+    return {
+        "rank": distributed.process_index(),
+        "world": distributed.process_count(),
+        "counts": read_counts(),
+        "epochs": epochs,
+        "vals": [s for _, s in out["val_history"]],
+        "best_score": out["best_score"],
+        "checksums": {name: distributed.checksum(getattr(states[-1], name).state_dict().values())
+                      for name in ("hrnet", "shiftnet")},
+        "writes": writes,
+        "final": {f"{name}.{k}": v.detach().cpu() for name in ("hrnet", "shiftnet")
+                  for k, v in getattr(states[-1], name).state_dict().items()},
+    }
+
+
+def interleaved_split(world: int, local_batch: int):
+    """train_val_split with the train scenes in the global-batch order of
+    ``world`` ranks (rank 0's rows of each batch, then rank 1's, ...), so
+    one process sees the ranks' global batches row for row."""
+    from highresnet_tpu_torch.data.pipeline import shard_for_hosts
+    from highresnet_tpu_torch.train import loop
+
+    real = loop.train_val_split
+
+    def split(dirs, prop, seed=1):
+        train, val = real(dirs, prop, seed=seed)
+        shards = [shard_for_hosts(train, r, world) for r in range(world)]
+        mixed = []
+        for k in range(len(shards[0]) // local_batch):
+            for shard in shards:
+                mixed += shard[k * local_batch:(k + 1) * local_batch]
+        return mixed, val
+
+    return split
+
+
+def one_process_oracle(cfg: dict, run_dir: str, world: int) -> dict:
+    """The one-process run at the global batch that ``world`` ranks make."""
+    from highresnet_tpu_torch.train import loop
+
+    real = loop.train_val_split
+    loop.train_val_split = interleaved_split(world, cfg["training"]["batch_size"] // world)
+    try:
+        return recorded_train(cfg, run_dir, "cuda")
+    finally:
+        loop.train_val_split = real
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(commands: list, envs: list, logs: list) -> None:
+    """Start every rank together; fail when one exits non-zero or any runs
+    past DIST_TIMEOUT_S, killing the rest either way."""
+    import subprocess
+
+    procs = []
+    try:
+        for cmd, env, log in zip(commands, envs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, env=env, cwd=REPO, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                raise AssertionError(f"[dist] rank {rank} exited {p.returncode} (a kill is a "
+                                     f"timeout of {DIST_TIMEOUT_S} s):\n{f.read()[-6000:]}")
+
+
+def rank_env(port: int, world: int, rank: int, local_rank: bool) -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HRN_")}
+    env.update(HRN_COORDINATOR=f"localhost:{port}", HRN_NUM_PROCESSES=str(world),
+               HRN_PROCESS_ID=str(rank),
+               # the ranks share the host's cores: spinning thread pools would oversubscribe them
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world)))
+    if local_rank:
+        env["LOCAL_RANK"] = str(rank)
+    return env
+
+
+def dist_child(rank: int, world: int, cfg_path: str, run_dir: str, out_path: str) -> None:
+    """One rank of [dist]'s Gloo run (``chip_smoke.py --dist-rank ...``)."""
+    import datetime
+
+    from highresnet_tpu_torch.kernels import build
+    from highresnet_tpu_torch.parallel import distributed
+    from highresnet_tpu_torch.runtime import setup_device
+
+    device = setup_device("cuda:0")
+    distributed.maybe_initialize(device, backend="gloo",
+                                 timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    if (distributed.process_index(), distributed.process_count()) != (rank, world):
+        raise AssertionError("the process group does not match the rank's arguments")
+    build.load()
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    record = recorded_train(cfg, run_dir, "cuda:0")
+    torch.save(record.pop("final"), out_path + ".pt")
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    distributed.shutdown()
+
+
+def dist_want(cfg: dict, epochs: list, n_val: int, world: int) -> dict:
+    """K1/K2/K3 launches of one process's run: K1 once per fusion round of
+    each train and val forward, K2 per round of each backward, K3 per step;
+    each rank runs one val forward per val batch (its rows of it)."""
+    t = cfg["training"]
+    rounds = int(np.log2(t["min_L"]))
+    steps = sum(e["steps"] for e in epochs)
+    val_forwards = len(epochs) * -(-n_val // t["eval_batch_size"])
+    return {"pack": rounds * (steps + val_forwards), "unpack": rounds * steps, "lanczos": steps,
+            "pack_dma": 0}
+
+
+def ms_per_step(record: dict) -> float:
+    """The last epoch's wall time per step (loader included)."""
+    last = record["epochs"][-1]
+    return last["seconds"] / last["steps"] * 1e3
+
+
+def check_parity(tag: str, ranks: list, oracle: dict) -> None:
+    """Per-epoch loss within STEP_LOSS_RTOL, val score within DIST_VAL_RTOL
+    and the epoch's mean grad_norm within STEP_GRAD_NORM_RTOL of the
+    one-process run."""
+    for rank, r in enumerate(ranks):
+        pairs = [("loss", e["train_loss"], o["train_loss"], STEP_LOSS_RTOL)
+                 for e, o in zip(r["epochs"], oracle["epochs"])]
+        pairs += [("val", v, w, DIST_VAL_RTOL) for v, w in zip(r["vals"], oracle["vals"])]
+        pairs += [("grad_norm", e["grad_norm"], o["grad_norm"], STEP_GRAD_NORM_RTOL)
+                  for e, o in zip(r["epochs"], oracle["epochs"])]
+        worst = {}
+        for name, got, want, limit in pairs:
+            rel = abs(got - want) / abs(want)
+            worst[name] = max(worst.get(name, 0.0), rel)
+            if rel > limit:
+                raise AssertionError(f"[{tag}] rank {rank} {name} {got} vs one process {want} "
+                                     f"(rel {rel:.2e} > {limit})")
+        print(f"[{tag}] rank {rank} of {len(ranks)} vs one process at the global batch: "
+              f"{len(r['epochs'])} epochs, max rel loss {worst['loss']:.2e}, val "
+              f"{worst['val']:.2e} (limit {DIST_VAL_RTOL}), grad_norm {worst['grad_norm']:.2e} "
+              f"(limit {STEP_GRAD_NORM_RTOL})")
+        if len(r["epochs"]) != len(oracle["epochs"]) or len(r["vals"]) != len(oracle["vals"]):
+            raise AssertionError(f"[{tag}] rank {rank} ran other epochs than the one process")
+
+
+def phase_dist(card: str, tmp: str) -> dict:
+    """Data parallelism through ``train_and_get_best_model``: two ranks on
+    one card over Gloo against one process at the same global batch, then
+    ``cli.train`` under HRN_COORDINATOR with NCCL on every visible card.
+    Returns the K1/K2/K3 launches summed over the Gloo ranks."""
+    from highresnet_tpu_torch.data import discover_scenes, train_val_split
+
+    world = DIST["world"]
+    cfg, cfg_path = dist_config(tmp, "dist_runs")
+    t = cfg["training"]
+    scenes = discover_scenes(os.path.join(cfg["paths"]["prefix"], "train"))
+    n_val = len(train_val_split(scenes, t["val_proportion"], seed=1)[1])
+
+    # the one-process oracle first, alone on the card
+    torch.cuda.empty_cache()
+    oracle = one_process_oracle(cfg, os.path.join(tmp, "dist_one"), world)
+    want_one = dist_want(cfg, oracle["epochs"], n_val, 1)
+    if oracle["counts"] != want_one:
+        raise AssertionError(f"[dist] one-process launches {oracle['counts']} != {want_one}")
+    torch.cuda.empty_cache()
+
+    port, run_dir = free_port(), os.path.join(tmp, "dist_two")
+    outs = [os.path.join(tmp, f"dist_rank{r}.json") for r in range(world)]
+    t0 = time.perf_counter()
+    run_ranks(
+        [[sys.executable, str(REPO / "chip_smoke.py"), "--dist-rank", str(r), str(world),
+          cfg_path, run_dir, outs[r]] for r in range(world)],
+        [rank_env(port, world, r, local_rank=False) for r in range(world)],
+        [os.path.join(tmp, f"dist_rank{r}.log") for r in range(world)],
+    )
+    wall = time.perf_counter() - t0
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    check_parity("dist", ranks, oracle)
+    final = torch.load(outs[0] + ".pt", weights_only=True)
+    diffs = sorted(((float((final[k].double() - v.double()).abs().max()), k)
+                    for k, v in oracle["final"].items() if v.is_floating_point()), reverse=True)
+    print(f"[dist] final weights, rank 0 against one process: largest max|diff| "
+          f"{', '.join(f'{k} {d:.3e}' for d, k in diffs[:4])}")
+    if any(r["checksums"] != ranks[0]["checksums"] for r in ranks):
+        raise AssertionError(f"[dist] the ranks end with different weights: "
+                             f"{[r['checksums'] for r in ranks]}")
+    if not ranks[0]["writes"] or any(r["writes"] for r in ranks[1:]):
+        raise AssertionError("[dist] a rank other than 0 wrote, or rank 0 wrote nothing")
+    if any(not w.startswith(run_dir) for w in ranks[0]["writes"]):
+        raise AssertionError("[dist] rank 0 wrote outside the run directory")
+    summed = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    want = {k: world * v for k, v in dist_want(cfg, ranks[0]["epochs"], n_val, world).items()}
+    print(f"[dist] {world} ranks on cuda:0 over Gloo, {len(ranks[0]['epochs'])} epochs x "
+          f"{ranks[0]['epochs'][0]['steps']} steps at {t['batch_size'] // world} scenes a rank, "
+          f"eval batch {t['eval_batch_size']} sharded: final weights bit-identical "
+          f"({ranks[0]['checksums']}), best score {ranks[0]['best_score']} on both "
+          f"(one process {oracle['best_score']}), rank 0 alone wrote "
+          f"{len(ranks[0]['writes'])} files; launches summed over the ranks {summed} "
+          f"(expected {want}); one process {oracle['counts']}")
+    if summed != want:
+        raise AssertionError(f"[dist] launches {summed} != {want}")
+    if any(r["best_score"] != ranks[0]["best_score"] for r in ranks):
+        raise AssertionError("[dist] the ranks selected different best scores")
+    print(f"[dist] ms per step (last epoch's wall time per step, loader included): one process "
+          f"batch {t['batch_size']} {ms_per_step(oracle):.3f}, {world} Gloo ranks sharing the "
+          f"card at {t['batch_size'] // world} each {ms_per_step(ranks[0]):.3f} (gradients and "
+          f"statistics staged through host memory; not a scaling figure); rank processes "
+          f"{wall:.1f} s wall, start-up included; {card}")
+    phase_dist_nccl(card, tmp, n_val)
+    return summed
+
+
+def phase_dist_nccl(card: str, tmp: str, n_val: int) -> None:
+    """``cli.train`` under HRN_COORDINATOR with NCCL, one rank per visible
+    card (LOCAL_RANK picks it), against one process at the same global batch."""
+    world = torch.cuda.device_count()
+    cfg, cfg_path = dist_config(tmp, "nccl_runs")
+    torch.cuda.empty_cache()
+    oracle = one_process_oracle(cfg, os.path.join(tmp, "nccl_one"), world)
+    torch.cuda.empty_cache()
+    port, run_dir = free_port(), os.path.join(tmp, "nccl_run")
+    logs = [os.path.join(tmp, f"nccl_rank{r}.log") for r in range(world)]
+    t0 = time.perf_counter()
+    run_ranks(
+        [[sys.executable, "-m", "highresnet_tpu_torch.cli.train", "--config", cfg_path,
+          "--run-dir", run_dir, "--device", "cuda"] for _ in range(world)],
+        [rank_env(port, world, r, local_rank=True) for r in range(world)],
+        logs,
+    )
+    wall = time.perf_counter() - t0
+    with open(logs[0]) as f:
+        lines = [ln.split() for ln in f if ln.startswith("epoch ")]
+    printed = [dict(p.split("=") for p in ln[2:] if "=" in p) for ln in lines]
+    if len(printed) != len(oracle["epochs"]):
+        raise AssertionError(f"[dist-nccl] rank 0 printed {len(printed)} epochs, expected "
+                             f"{len(oracle['epochs'])}")
+    worst = 0.0
+    for p, e, v in zip(printed, oracle["epochs"], oracle["vals"]):
+        for got, want, limit in ((float(p["loss"]), e["train_loss"], STEP_LOSS_RTOL),
+                                 (float(p["val"]), v, DIST_VAL_RTOL)):
+            # the log prints 4 decimals: half a unit of the last one is allowed on top
+            if abs(got - want) > limit * abs(want) + 5e-5:
+                raise AssertionError(f"[dist-nccl] printed {got} vs one process {want}")
+            worst = max(worst, abs(got - want) / abs(want))
+    for log in logs[1:]:
+        with open(log) as f:
+            if any(ln.startswith("epoch ") for ln in f):
+                raise AssertionError("[dist-nccl] a rank other than 0 printed epochs")
+    print(f"[dist-nccl] cli.train on {world} card(s), NCCL under HRN_COORDINATOR (world {world}: "
+          f"the init, the step's all-reduces, the eval all-gather and the checks ran): "
+          f"{len(printed)} epochs, printed loss/val vs one process at batch "
+          f"{cfg['training']['batch_size']}: max rel {worst:.2e} (limits {STEP_LOSS_RTOL} / "
+          f"{DIST_VAL_RTOL} + print rounding); {wall:.1f} s wall for the rank processes, "
+          f"start-up included; {card}")
 
 
 def phase_dma(fusion, fusion_dma, card: str) -> dict:
@@ -1475,6 +1831,10 @@ def phase_registration(card: str, tmp: str) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
+    if sys.argv[1:2] == ["--dist-rank"]:  # one rank of [dist], started by phase_dist
+        rank, world, cfg_path, run_dir, out_path = sys.argv[2:7]
+        dist_child(int(rank), int(world), cfg_path, run_dir, out_path)
+        return
     from highresnet_tpu_torch.kernels import build
     from highresnet_tpu_torch.ops import fusion, fusion_dma, lanczos_fused
     from highresnet_tpu_torch.runtime import card_line, setup_device
@@ -1502,6 +1862,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         trained = phase_train(fusion, lanczos_fused, card, tmp)
         phase_train_step(card, tmp)
+        distributed = phase_dist(card, tmp)
     dma = phase_dma(fusion, fusion_dma, card)
     measured["pack"].update(dma["pack"])
     measured["pack_dma"] = dma["pack_dma"]
@@ -1527,7 +1888,7 @@ def main() -> None:
         "route": "cuda",
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": predicted[key] + trained[key] + lab[key] + flagship[key],
+        "launches": predicted[key] + trained[key] + distributed[key] + lab[key] + flagship[key],
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

@@ -8,6 +8,21 @@ The same flags as ``highresnet_tpu.cli.train`` plus ``--device``: --run-dir
 creates or resumes a run directory, --max-steps stops after N optimizer
 steps. The run directory's ``best/HRNet.pth`` serves through
 ``highresnet_tpu_torch.cli.predict --checkpoint <run dir>``.
+
+Data parallelism runs one process per card, each on its shard of the
+global batch ``training.batch_size`` (which the world size must divide):
+
+    HRN_DISTRIBUTED=auto torchrun --nproc-per-node 4 \
+        -m highresnet_tpu_torch.cli.train --config configs/config.json
+
+(``--device cuda`` becomes ``cuda:$LOCAL_RANK``), or on bare metal one
+process per rank with
+
+    HRN_COORDINATOR=host0:29500 HRN_NUM_PROCESSES=4 HRN_PROCESS_ID=<i> \
+        python -m highresnet_tpu_torch.cli.train --config ... --device cuda:<card>
+
+NCCL joins the processes on cards, Gloo with ``--device cpu``. The run
+directory must be on storage every process reads; rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -27,15 +42,20 @@ def main(argv=None):
         parser.error(f"config file not found: {args.config}")
 
     from highresnet_tpu_torch.config import load_config
+    from highresnet_tpu_torch.parallel.distributed import process_index, shutdown
     from highresnet_tpu_torch.runtime import setup_device
     from highresnet_tpu_torch.train.loop import train_and_get_best_model
 
     config = load_config(args.config)
     device = setup_device(args.device)
-    out = train_and_get_best_model(
-        config, max_steps=args.max_steps, run_dir=args.run_dir, device=device
-    )
-    print(f"best score: {out['best_score']:.4f}  (weights in {out['run_dir']})")
+    try:
+        out = train_and_get_best_model(
+            config, max_steps=args.max_steps, run_dir=args.run_dir, device=device
+        )
+    finally:
+        shutdown()
+    if process_index() == 0:
+        print(f"best score: {out['best_score']:.4f}  (weights in {out['run_dir']})")
     return out
 
 

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from highresnet_tpu_torch.parallel.distributed import all_reduce_sum
+
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +43,39 @@ class Linear(nn.Linear):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """Normalises and keeps its running statistics in float32 whatever the
-    input dtype, and returns the input's dtype (the JAX ``TorchBatchNorm``)."""
+    input dtype, and returns the input's dtype (the JAX ``TorchBatchNorm``).
+
+    With ``synced`` set, each process of a data-parallel run holds one shard
+    of the batch and train mode normalises over the global batch, as JAX's
+    BatchNorm does on a sharded batch: the per-channel sums and counts are
+    summed over the ranks for the mean, then the squared deviations for the
+    biased variance; the running variance takes the global unbiased one.
+    Both sums are differentiable all-reduces, so the gradient is that of the
+    global batch. ``torch.nn.SyncBatchNorm`` refuses CPU tensors."""
+
+    synced = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.synced:
+            return self._global_batch_norm(x.float()).to(x.dtype)
         return super().forward(x.float()).to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        per_channel = (None, slice(None), None, None)
+        local = torch.cat([x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() / c)])
+        total = all_reduce_sum(local)
+        n = total[c]
+        mean = total[:c] / n
+        dev = x - mean[per_channel]
+        var = all_reduce_sum(torch.square(dev).sum(dim=(0, 2, 3))) / n
+        y = dev * torch.rsqrt(var + self.eps)[per_channel]
+        if self.affine:
+            y = y * self.weight[per_channel] + self.bias[per_channel]
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+                self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+                self.running_var.mul_(1.0 - m).add_(var.detach() * (n / (n - 1.0)) * m)
+        return y

@@ -23,6 +23,12 @@ image. Submodule names are the reference ``ShiftNet.pth`` keys
   that saves the generator redraws the same masks on resume. Setting the
   attribute to 0 turns it off, as the parity checks do (the frameworks'
   masks cannot agree).
+- ``sync_batch()`` makes train mode see the global batch of a data-parallel
+  run (each process holds one shard): BatchNorm over the global batch, and
+  one dropout draw over the global (world · B, F) shape, of which each rank
+  keeps its own rows. A run's masks and generator state then do not depend
+  on the number of processes, as in JAX, whose dropout draws over the
+  global batch.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from torch import nn
 
 from highresnet_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear
 from highresnet_tpu_torch.ops.lanczos_fused import lanczos_shift_fused
+from highresnet_tpu_torch.parallel.distributed import process_count, process_index
 
 WIDTHS = (64, 64, 64, 64, 128, 128, 128, 128)
 POOLS = (False, True, False, True, False, True, False, False)
@@ -86,6 +93,15 @@ class ShiftNet(nn.Module):
                 m.reset_parameters()
         self.fc2.weight.zero_()
 
+    synced = False
+
+    def sync_batch(self, on: bool = True) -> None:
+        """Train on one rank's shard of a global batch (see the module notes)."""
+        self.synced = on
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.synced = on
+
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, 2, H, W) pairs -> (B, 2) float32 translations (dx, dy)."""
         x = (x - x.mean(dim=(2, 3), keepdim=True)).to(self.dtype)
@@ -96,7 +112,12 @@ class ShiftNet(nn.Module):
             if generator is None:
                 raise ValueError("ShiftNet in train mode draws its dropout mask from a generator")
             keep_prob = 1.0 - self.dropout
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+            rows, start = x.shape[0], 0
+            if self.synced:  # the global draw; this rank's rows
+                start = process_index() * rows
+                rows = process_count() * rows
+            draw = torch.rand((rows, x.shape[1]), generator=generator, device=x.device)
+            keep = draw[start:start + x.shape[0]] < keep_prob
             x = torch.where(keep, x / keep_prob, torch.zeros_like(x))
         x = F.relu(self.fc1(x))
         return self.fc2(x).float()

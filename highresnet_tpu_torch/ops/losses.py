@@ -47,16 +47,18 @@ def get_loss(sr, hr, mask, metric: str = "cMSE") -> torch.Tensor:
     raise ValueError(f"unknown loss metric {metric!r}; expected one of {LOSS_METRICS}")
 
 
-def registered_loss(sr_shifted, hr, mask, shifts, lam: float, metric: str = "cPSNR"):
+def registered_loss(sr_shifted, hr, mask, shifts, lam: float, metric: str = "cPSNR",
+                    mean=torch.mean):
     """mean(criterion) + lam · mean(shifts)²; −cPSNR for the default metric.
 
     The regulariser is lambda times the SQUARE OF THE MEAN of all shift
-    components: it penalises a net translation, not the shifts' size.
+    components: it penalises a net translation, not the shifts' size. A
+    data-parallel step passes as ``mean`` the mean over every rank's shifts.
     """
     per_image = get_loss(sr_shifted, hr, mask, metric=metric)
     if metric == "cPSNR":
         per_image = -per_image
-    return torch.mean(per_image) + lam * torch.square(torch.mean(shifts))
+    return torch.mean(per_image) + lam * torch.square(mean(shifts))
 
 
 def crop_mask(patch_size: int, crop: int) -> np.ndarray:

@@ -52,12 +52,13 @@ def card_line() -> str:
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
-    """``cuda`` -> ``cuda:0``; raises for a CUDA device that is not there."""
+    """``cuda`` -> ``cuda:$LOCAL_RANK`` under a launcher that sets it
+    (torchrun), else ``cuda:0``; raises for a CUDA device that is not there."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device} requested but CUDA is not available")
-        index = 0 if device.index is None else device.index
+        index = int(os.environ.get("LOCAL_RANK", 0)) if device.index is None else device.index
         if index >= torch.cuda.device_count():
             raise RuntimeError(
                 f"device {device} requested but only {torch.cuda.device_count()} "

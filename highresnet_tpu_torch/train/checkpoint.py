@@ -12,6 +12,10 @@ temporary name and renamed into place.
 ``best/`` holds the best weights for inference in the reference's formats,
 ``HRNet.pth`` and ``ShiftNet.pth`` (state dicts, BatchNorm buffers
 included), with ``best_score.json`` beside them; all written synchronously.
+
+In a multi-process run the state is replicated: rank 0 alone writes, every
+rank then waits at a barrier, and a resume reads the run directory (shared
+storage) on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from highresnet_tpu_torch.parallel.distributed import barrier, process_index
 
 STATE_FILE = "state.pt"
 HRNET_FILE = "HRNet.pth"
@@ -53,7 +59,9 @@ def _load(path: str):
 class CheckpointManager:
     def __init__(self, run_dir: str):
         self.run_dir = os.path.abspath(run_dir)
-        os.makedirs(self.run_dir, exist_ok=True)
+        self.primary = process_index() == 0
+        if self.primary:
+            os.makedirs(self.run_dir, exist_ok=True)
         self._last_slot = self._read_latest().get("slot", "state_1")
 
     def _path(self, *parts: str) -> str:
@@ -71,10 +79,12 @@ class CheckpointManager:
     def save_state(self, state, host_state: Dict[str, Any]) -> None:
         """Save into the slot latest.json does NOT point to, then point to it."""
         slot = "state_0" if self._last_slot != "state_0" else "state_1"
-        os.makedirs(self._path(slot), exist_ok=True)
-        _save(state.state_dict(), self._path(slot, STATE_FILE))
-        _write_json({"slot": slot, **host_state}, self._path("latest.json"))
+        if self.primary:
+            os.makedirs(self._path(slot), exist_ok=True)
+            _save(state.state_dict(), self._path(slot, STATE_FILE))
+            _write_json({"slot": slot, **host_state}, self._path("latest.json"))
         self._last_slot = slot
+        barrier()
 
     def restore_state(self, state) -> Optional[Dict[str, Any]]:
         """Load the pointed-to slot into ``state``; returns the host state,
@@ -98,13 +108,15 @@ class CheckpointManager:
 
     def save_best(self, params, batch_stats, score: float, epoch: Optional[int] = None) -> None:
         """Synchronous: ``best/`` is complete on return."""
-        os.makedirs(self._path("best"), exist_ok=True)
-        _save(params["hrnet"], self._path("best", HRNET_FILE))
-        _save({**params["shiftnet"], **batch_stats}, self._path("best", SHIFTNET_FILE))
-        meta = {"score": float(score)}
-        if epoch is not None:
-            meta["epoch"] = int(epoch)
-        _write_json(meta, self._path("best_score.json"))
+        if self.primary:
+            os.makedirs(self._path("best"), exist_ok=True)
+            _save(params["hrnet"], self._path("best", HRNET_FILE))
+            _save({**params["shiftnet"], **batch_stats}, self._path("best", SHIFTNET_FILE))
+            meta = {"score": float(score)}
+            if epoch is not None:
+                meta["epoch"] = int(epoch)
+            _write_json(meta, self._path("best_score.json"))
+        barrier()
 
     def has_best(self) -> bool:
         return all(os.path.isfile(self._path("best", f)) for f in (HRNET_FILE, SHIFTNET_FILE))

@@ -3,7 +3,8 @@
 The counterpart of ``highresnet_tpu/train/epoch.py``. Metrics accumulate on
 the device (sums for loss / mean shift / grad norm, a max for
 ``max_abs_shift``) and the epoch reads them back to the host once, at its
-end.
+end. In a multi-process run the step's metrics are already global and the
+epoch counts the scenes of every rank, so each rank ends with the same stats.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import warnings
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+from highresnet_tpu_torch.parallel.distributed import process_count
 
 
 def warp_window_px(t: Dict[str, Any]) -> float:
@@ -68,13 +71,15 @@ def run_train_epoch(
     peak = None
     n_seen = 0
     n_steps = 0
+    world = process_count()  # equal local batches (drop_last): global = world x local
     t0 = time.time()
     for batch in loader:
         state, m = step_fn(state, *batch_to_device(batch, device))
-        contrib = torch.stack([m["loss"] * len(batch.names), m["mean_abs_shift"], m["grad_norm"]])
+        n = len(batch.names) * world
+        contrib = torch.stack([m["loss"] * n, m["mean_abs_shift"], m["grad_norm"]])
         sums = contrib if sums is None else sums + contrib
         peak = m["max_abs_shift"] if peak is None else torch.maximum(peak, m["max_abs_shift"])
-        n_seen += len(batch.names)
+        n_seen += n
         n_steps += 1
         if steps_left is not None and n_steps >= steps_left:
             break

@@ -1,9 +1,12 @@
 """Validation-set construction and scoring.
 
-The counterpart of ``highresnet_tpu/train/evaluation.py`` (single device:
-no mesh, no multi-host). With norm.csv the val score is the mean of
-ESA / model cPSNR ratios (lower is better, < 1 beats the ESA baseline);
-without it, the mean of −shift_cPSNR.
+The counterpart of ``highresnet_tpu/train/evaluation.py``. With norm.csv
+the val score is the mean of ESA / model cPSNR ratios (lower is better,
+< 1 beats the ESA baseline); without it, the mean of −shift_cPSNR.
+
+With ``shard=True`` (a multi-process run, eval batch a multiple of the
+world size) each rank scores its rows of every batch and the scores are
+all-gathered in scene order, so every rank computes the same val score.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from highresnet_tpu_torch.data import collate, read_imageset
+from highresnet_tpu_torch.parallel.distributed import all_gather, process_count, process_index
 
 
 def build_val_batches(
@@ -65,6 +69,7 @@ def evaluate_model(
     prebuilt_batches=None,
     sample_rng=None,
     device: torch.device | str = "cuda",
+    shard: bool = False,
 ):
     """Validation score over full-resolution scenes.
 
@@ -78,12 +83,20 @@ def evaluate_model(
         batches = build_val_batches(val_scenes, min_l, top_k, beta, batch_size, rng=sample_rng)
     pending = []  # (names, device scores)
     first_srs = first_hr = None
+    rank, world = (process_index(), process_count()) if shard else (0, 1)
     for names, host_args in batches:
-        args = [torch.from_numpy(a).to(device) for a in host_args]
+        rows, ragged = divmod(len(host_args[0]), world)
+        if ragged:
+            raise ValueError(f"eval batch {len(host_args[0])} does not split over {world} ranks")
+        args = [torch.from_numpy(a[rank * rows:(rank + 1) * rows]).to(device) for a in host_args]
         srs, scores = eval_step(params_hrnet, *args)
         if return_images and first_srs is None:
             first_srs, first_hr = srs, host_args[2][0]
         pending.append((names, scores))
+    if shard and pending:  # one gather: (world, batches, rows) -> each batch in scene order
+        gathered = all_gather(torch.stack([scores for _, scores in pending]))
+        scores = gathered.transpose(0, 1).reshape(len(pending), -1)
+        pending = [(names, s) for (names, _), s in zip(pending, scores)]
 
     total, n = 0.0, 0
     for names, scores in pending:

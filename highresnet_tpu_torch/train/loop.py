@@ -1,10 +1,18 @@
 """Training orchestration: train HRNet + ShiftNet and keep the best weights.
 
-The counterpart of ``highresnet_tpu/train/loop.py`` on one device (no mesh,
-no multi-host): per epoch, the train steps (``epoch.py``), validation on
-pre-collated batches (``evaluation.py``), EMA dual selection and best
-tracking (``selection.py``), ReduceLROnPlateau on the raw val score,
-optional early stop, and the full resumable state (``checkpoint.py``).
+The counterpart of ``highresnet_tpu/train/loop.py``: per epoch, the train
+steps (``epoch.py``), validation on pre-collated batches
+(``evaluation.py``), EMA dual selection and best tracking
+(``selection.py``), ReduceLROnPlateau on the raw val score, optional early
+stop, and the full resumable state (``checkpoint.py``).
+
+Across processes (``parallel/``; HRN_COORDINATOR or HRN_DISTRIBUTED=auto)
+each rank trains on its shard of the train list at B / world scenes a step,
+with the step's collectives making the ranks' step the one-process step at
+batch B. Every rank computes the same val scores, so selection, the plateau
+scheduler and early stop decide alike; rank 0 names the run directory,
+writes the checkpoints and TensorBoard and prints. The ranks are checked to
+hold identical state after setup, after a resume, and at the end.
 
 One difference from the JAX loop: a resumed run sets the train loader's
 epoch counter to the epoch it resumes at, so it draws the same views and
@@ -23,15 +31,26 @@ import numpy as np
 import torch
 
 from highresnet_tpu_torch.data import discover_scenes, read_baseline_cpsnr, train_val_split
-from highresnet_tpu_torch.data.pipeline import EpochCache
+from highresnet_tpu_torch.data.pipeline import EpochCache, shard_for_hosts
+from highresnet_tpu_torch.parallel.distributed import (
+    assert_replicated,
+    broadcast_string,
+    maybe_initialize,
+)
+from highresnet_tpu_torch.parallel.mesh import check_local_shard, setup_data_parallel
 from highresnet_tpu_torch.runtime import resolve_device
 from highresnet_tpu_torch.train.checkpoint import CheckpointManager, resume_run
 from highresnet_tpu_torch.train.epoch import run_train_epoch, warn_warp_window
 from highresnet_tpu_torch.train.evaluation import build_val_batches, evaluate_model
 from highresnet_tpu_torch.train.schedule import ReduceLROnPlateau
 from highresnet_tpu_torch.train.selection import BestTracker, dual_candidates, host_copy
-from highresnet_tpu_torch.train.setup import build_models_and_steps, build_train_loader
+from highresnet_tpu_torch.train.setup import (
+    build_models_and_steps,
+    build_train_loader,
+    replicated_groups,
+)
 from highresnet_tpu_torch.train.tb import TBWriter
+from highresnet_tpu_torch.utils.profiling import enable_nan_debugging
 
 
 def _run_dir_name(t: Dict[str, Any]) -> str:
@@ -56,9 +75,13 @@ def train_and_get_best_model(
     mean train loss (None when no epoch ran).
     """
     device = resolve_device(device)
+    maybe_initialize(device)  # no-op unless HRN_COORDINATOR / HRN_DISTRIBUTED asks
     t = config["training"]
     paths = config["paths"]
     seed = t.get("seed", 123)
+    layout = setup_data_parallel(t, device)
+    if t.get("debug_nans", False):
+        enable_nan_debugging(True)
 
     # --- data ---------------------------------------------------------------
     data_dir = paths["prefix"]
@@ -71,8 +94,11 @@ def train_and_get_best_model(
         raise FileNotFoundError(f"no scenes under {data_dir}/train/(RED|NIR)")
     train_list, val_list = train_val_split(scene_dirs, t["val_proportion"], seed=1)
 
-    loader = build_train_loader(t, train_list, seed=seed, data_dir=data_dir)
-    pieces = build_models_and_steps(config, device, seed=seed, train_list=train_list)
+    local_train_list = shard_for_hosts(train_list, layout.rank, layout.world)
+    check_local_shard(layout, len(local_train_list))
+    loader = build_train_loader(t, local_train_list, seed=seed, data_dir=data_dir, layout=layout)
+    pieces = build_models_and_steps(config, device, seed=seed, train_list=train_list,
+                                    layout=layout)
     state, eval_step, eval_batch = pieces.state, pieces.eval_step, pieces.eval_batch
 
     # the val set is collated once with a seeded rng (deterministic score);
@@ -100,7 +126,7 @@ def train_and_get_best_model(
                 params_hrnet, eval_step, val_list, t["min_L"], baseline,
                 top_k=t["n_views"], beta=t["beta"], batch_size=eval_batch,
                 return_images=want_images, prebuilt_batches=batches,
-                sample_rng=sample_rng, device=device,
+                sample_rng=sample_rng, device=device, shard=pieces.eval_shard,
             )
 
         if not extra_val_batches:
@@ -110,16 +136,19 @@ def train_and_get_best_model(
         mixture = float(np.mean([score] + [one(b, False) for b in extra_val_batches]))
         return (mixture, *images) if return_images else mixture
 
-    if run_dir is None:
-        run_dir = os.path.join(paths["checkpoint_dir"], _run_dir_name(t))
+    if run_dir is None:  # rank 0's clock names it
+        run_dir = broadcast_string(os.path.join(paths["checkpoint_dir"], _run_dir_name(t)))
     ckpt = CheckpointManager(run_dir)
     scheduler = ReduceLROnPlateau(t["lr"], factor=t["lr_decay"], patience=t["lr_step"])
-    writer = TBWriter(paths.get("tb_log_file_dir"), os.path.basename(run_dir))
+    writer = TBWriter(paths.get("tb_log_file_dir"), os.path.basename(run_dir),
+                      enabled=layout.primary)
 
     # --- resume -------------------------------------------------------------
     tracker = BestTracker(ckpt, patience=t.get("early_stop_patience", 0))
     tracker.seed(host_copy({"params": state.eval_params, "batch_stats": state.batch_stats}))
     state, start_epoch = resume_run(ckpt, state, tracker, scheduler)
+    if start_epoch > 1:
+        assert_replicated(replicated_groups(state), "after the resume")
     loader.epoch = start_epoch - 1  # the sampling an uninterrupted run would draw
     if isinstance(loader, EpochCache):  # and the variant it would build next
         loader.loader.epoch = start_epoch - 1
@@ -198,23 +227,26 @@ def train_and_get_best_model(
             sr0=sr0,
             hr0=hr0,
         )
-        print(
-            f"epoch {epoch}/{num_epochs} loss={estats['train_loss']:.4f} "
-            f"val={val_score:.4f} best={tracker.best_score:.4f} lr={new_lr:.2e} "
-            f"({time.time() - t0:.1f}s)",
-            flush=True,
-        )
-        if early_stop:
+        if layout.primary:
             print(
-                f"early stop at epoch {epoch}: no val improvement since epoch "
-                f"{tracker.best_epoch} (patience {tracker.patience})",
+                f"epoch {epoch}/{num_epochs} loss={estats['train_loss']:.4f} "
+                f"val={val_score:.4f} best={tracker.best_score:.4f} lr={new_lr:.2e} "
+                f"({time.time() - t0:.1f}s)",
                 flush=True,
             )
+        if early_stop:
+            if layout.primary:
+                print(
+                    f"early stop at epoch {epoch}: no val improvement since epoch "
+                    f"{tracker.best_epoch} (patience {tracker.patience})",
+                    flush=True,
+                )
             break
         if max_steps is not None and steps_done >= max_steps:
             break
 
     writer.close()
+    assert_replicated(replicated_groups(state), "at the end of the run")
     out = {
         "params": tracker.best["params"],
         "batch_stats": tracker.best["batch_stats"],

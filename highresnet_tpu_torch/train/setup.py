@@ -1,16 +1,21 @@
 """Training-run setup: the train loader, the models, the state and the steps.
 
-The counterpart of ``highresnet_tpu/train/setup.py`` on one device:
+The counterpart of ``highresnet_tpu/train/setup.py``, for one process of a
+data-parallel run (``parallel/mesh.py::DataParallel``; one process alone by
+default):
 
-- ``build_train_loader``: the port's ``BatchLoader``, wrapped in the mmap
+- ``build_train_loader``: the port's ``BatchLoader`` over this rank's shard
+  of the train list at the local batch, seeded ``seed + 7919 · rank``,
+  dropping ragged batches when there are several ranks, wrapped in the mmap
   ``EpochCache`` when ``training.epoch_cache_variants > 0``, under the JAX
-  package's cache key (one process, the local batch the whole batch);
+  package's cache key;
 - ``build_models_and_steps``: the seeded train state, the weights of
   ``training.init_params_from`` (another run's ``best/``), the ShiftNet
-  warm-start (``training.shiftnet_warmup_steps``), and the train/eval steps.
+  warm-start (``training.shiftnet_warmup_steps``, from the global list on
+  every rank), the check that the ranks start identical, the train/eval
+  steps, and the eval batch rounded up to a multiple of the world size.
 
-Refused with ``NotImplementedError`` naming the ROADMAP item:
-``training.mesh`` (multi-device training).
+``training.mesh`` is refused by ``setup_data_parallel``.
 """
 
 from __future__ import annotations
@@ -23,50 +28,48 @@ import torch
 
 from highresnet_tpu_torch.data import BatchLoader
 from highresnet_tpu_torch.data.pipeline import EpochCache
+from highresnet_tpu_torch.parallel.distributed import assert_replicated
+from highresnet_tpu_torch.parallel.mesh import DataParallel, setup_data_parallel
 from highresnet_tpu_torch.train.checkpoint import HRNET_FILE, SHIFTNET_FILE, CheckpointManager
 from highresnet_tpu_torch.train.epoch import warp_window_px
 from highresnet_tpu_torch.train.pretrain import hr_crop_pool, pretrain_shiftnet
 from highresnet_tpu_torch.train.state import TrainState, create_train_state
 from highresnet_tpu_torch.train.step import build_eval_step, build_train_step
 
-NOT_PORTED = {
-    "mesh": "training.mesh (multi-device training) is not ported yet (ROADMAP queue 1, item 9)",
-}
+
+def one_process(t: Dict[str, Any]) -> DataParallel:
+    """The layout of a run without a process group."""
+    return DataParallel(rank=0, world=1, synced=False, local_batch=t["batch_size"])
 
 
-def check_supported(t: Dict[str, Any]) -> None:
-    """Raise for a training option this port does not run yet."""
-    for key, message in NOT_PORTED.items():
-        if t.get(key):
-            raise NotImplementedError(message)
-
-
-def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int, data_dir: str):
-    """The train loader; an ``EpochCache`` over it with epoch_cache_variants > 0,
-    under ``epoch_cache_dir`` or ``<data_dir>/.epoch_cache``."""
+def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int, data_dir: str,
+                       layout: Optional[DataParallel] = None):
+    """The train loader over ``train_list`` (this rank's shard); an
+    ``EpochCache`` over it with epoch_cache_variants > 0, under
+    ``epoch_cache_dir`` or ``<data_dir>/.epoch_cache``."""
+    layout = layout or one_process(t)
     loader = BatchLoader(
         train_list,
-        batch_size=t["batch_size"],
+        batch_size=layout.local_batch,
         min_l=t["min_L"],
         top_k=t["n_views"],
         beta=t["beta"],
         create_patches=t.get("create_patches", True),
         patch_size=t["patch_size"],
         shuffle=t.get("shuffle", True),
-        seed=seed,
+        seed=seed + 7919 * layout.rank,  # decorrelate the ranks' view/patch sampling
         num_workers=t.get("n_workers", 4),
-        drop_last=False,
+        drop_last=layout.drop_last,
         augment=t.get("augment_dihedral", False),
         variable_views_p=float(t.get("variable_views_p", 0.0) or 0.0),
     )
     cache_variants = int(t.get("epoch_cache_variants", 0) or 0)
     if cache_variants <= 0:
         return loader
-    # the JAX key with one process (h0) that keeps its batches (d0)
     proto_key = (
-        f"b{t['batch_size']}_L{t['min_L']}_k{t['n_views']}_p{t['patch_size']}"
+        f"b{layout.local_batch}_L{t['min_L']}_k{t['n_views']}_p{t['patch_size']}"
         f"_c{int(t.get('create_patches', True))}_sh{int(t.get('shuffle', True))}"
-        f"_d0_s{seed}_h0_n{len(train_list)}"
+        f"_d{int(layout.drop_last)}_s{seed}_h{layout.rank}_n{len(train_list)}"
         f"_a{int(t.get('augment_dihedral', False))}_be{t['beta']:g}"
         f"_vv{float(t.get('variable_views_p', 0.0) or 0.0):g}"
     )
@@ -83,6 +86,7 @@ class RunPieces(NamedTuple):
     register_warmup: int
     eval_step: Callable
     eval_batch: int
+    eval_shard: bool  # each rank scores its rows of every val batch
 
 
 @torch.no_grad()
@@ -114,7 +118,7 @@ def load_init_params(state: TrainState, run_dir: str) -> None:
 
 
 def maybe_warmstart_shiftnet(state: TrainState, t: Dict[str, Any], train_list: List[str],
-                             seed: int) -> Optional[float]:
+                             seed: int, is_primary: bool = True) -> Optional[float]:
     """The ShiftNet warm-start of ``training.shiftnet_warmup_steps`` (registered
     runs only), from the global train list with generator ``seed + 1``, on
     the warp window the registered loss uses; the EMA's ShiftNet restarts at
@@ -134,33 +138,48 @@ def maybe_warmstart_shiftnet(state: TrainState, t: Dict[str, Any], train_list: L
         use_pallas_warp=bool(t.get("use_pallas_warp", False)),
     )
     _restart_ema(state, ("shiftnet",))
-    print(f"shiftnet warm-start: {steps} steps on {len(pool)} HR crops, final shift RMSE "
-          f"{rmse:.3f} px", flush=True)
+    if is_primary:
+        print(f"shiftnet warm-start: {steps} steps on {len(pool)} HR crops, final shift RMSE "
+              f"{rmse:.3f} px", flush=True)
     return rmse
 
 
+def replicated_groups(state: TrainState) -> Dict[str, Any]:
+    """What must be identical on every rank: each model (parameters and
+    buffers) and the dropout generator."""
+    return {
+        "hrnet": state.hrnet.state_dict().values(),
+        "shiftnet": state.shiftnet.state_dict().values(),
+        "generator": [state.generator.get_state()],
+    }
+
+
 def build_models_and_steps(config: Dict[str, Any], device: torch.device, *, seed: int,
-                           train_list: List[str]) -> RunPieces:
+                           train_list: List[str],
+                           layout: Optional[DataParallel] = None) -> RunPieces:
     """The train state (models drawn from ``seed``, then ``init_params_from``'s
     weights and the ShiftNet warm-start) and the train/eval steps.
 
     With ``register_warmup_epochs > 0`` the first epochs use a step built
     with ``register=False`` (the registration curriculum)."""
     t = config["training"]
-    check_supported(t)
+    layout = layout or setup_data_parallel(t, device)
     state = create_train_state(config, device, torch.Generator().manual_seed(seed))
     init_from = t.get("init_params_from") or ""
     if init_from:
         load_init_params(state, init_from)
-        print(f"init: params loaded from {init_from}/best", flush=True)
-    maybe_warmstart_shiftnet(state, t, train_list, seed)
-    train_step = build_train_step(config)
+        if layout.primary:
+            print(f"init: params loaded from {init_from}/best", flush=True)
+    maybe_warmstart_shiftnet(state, t, train_list, seed, is_primary=layout.primary)
+    assert_replicated(replicated_groups(state), "after the seeded init and the warm-start")
+    train_step = build_train_step(config, data_parallel=layout.synced)
     register_warmup = int(t.get("register_warmup_epochs", 0) or 0)
     warm_train_step = None
     if register_warmup > 0 and t.get("register", True):
         warm_cfg = copy.deepcopy(config)
         warm_cfg["training"]["register"] = False
-        warm_train_step = build_train_step(warm_cfg)
+        warm_train_step = build_train_step(warm_cfg, data_parallel=layout.synced)
     eval_step = build_eval_step(state.hrnet)
+    eval_batch = layout.eval_batch(t.get("eval_batch_size", 1))
     return RunPieces(state, train_step, warm_train_step, register_warmup, eval_step,
-                     t.get("eval_batch_size", 1))
+                     eval_batch, layout.synced and eval_batch > 1)

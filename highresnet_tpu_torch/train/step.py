@@ -15,6 +15,14 @@ The counterpart of ``highresnet_tpu/train/step.py`` (no mesh):
 The step updates the state in place and returns its metrics as device
 tensors (no host sync): ``loss``, ``mean_abs_shift``, ``max_abs_shift``
 and ``grad_norm`` (of the gradients before any clipping).
+
+``data_parallel=True`` builds the step of one process of a multi-process
+run, on its shard of the global batch, so that the ranks together take the
+step one process takes on the whole batch: ShiftNet sees the global batch
+(``ShiftNet.sync_batch``), the shift penalty squares the mean over every
+rank's shifts, the gradients are averaged over the ranks in one flat
+all-reduce before the global norm, clip and Adam, and the metrics are
+global (loss and mean shift averaged, max shift the max over ranks).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from highresnet_tpu_torch.models.shiftnet import ShiftNet
 from highresnet_tpu_torch.ops.lanczos_fused import training_warp
 from highresnet_tpu_torch.ops.losses import LOSS_METRICS, crop_mask, registered_loss
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
+from highresnet_tpu_torch.parallel import distributed
 from highresnet_tpu_torch.train.state import TrainState, clip_by_global_norm_, global_norm
 
 REGISTER_SIZE = 128  # default ShiftNet input crop (the reference's fc geometry)
@@ -52,7 +61,12 @@ def register_and_warp(
     return training_warp(srs, shifts, warp_int_range, use_pallas_warp), thetas
 
 
-def build_train_step(config: Dict[str, Any]) -> Callable:
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of x over every rank's elements (equal shards), differentiable."""
+    return distributed.all_reduce_sum(torch.mean(x)) / distributed.process_count()
+
+
+def build_train_step(config: Dict[str, Any], data_parallel: bool = False) -> Callable:
     """Returns step(state, lrs, alphas, hrs, hr_maps) -> (state, metrics);
     the batch tensors are on the state's device."""
     t = config["training"]
@@ -90,7 +104,8 @@ def build_train_step(config: Dict[str, Any]) -> Callable:
         if hrs.device not in masks:
             masks[hrs.device] = border_mask.to(hrs.device)
         mask = masks[hrs.device][None] * hr_maps
-        loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric)
+        loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric,
+                               mean=global_mean if data_parallel else torch.mean)
         if range_penalty > 0:
             overflow = F.relu(srs - 1.0) + F.relu(-srs)
             loss = loss + range_penalty * torch.mean(overflow.float())
@@ -99,6 +114,7 @@ def build_train_step(config: Dict[str, Any]) -> Callable:
     def step(state: TrainState, lrs, alphas, hrs, hr_maps):
         state.hrnet.train()
         state.shiftnet.train()
+        state.shiftnet.sync_batch(data_parallel)
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         # every parameter gets a gradient, zero where unused (the unregistered
         # arm's ShiftNet), so Adam's moments and step count advance for all
@@ -110,6 +126,8 @@ def build_train_step(config: Dict[str, Any]) -> Callable:
         loss, thetas = loss_fn(state, lrs, alphas, hrs, hr_maps)
         loss.backward()
         grads = [p.grad for p in params]
+        if data_parallel:
+            distributed.reduce_gradients_(grads)
         grad_norm = global_norm(grads)
         if state.grad_clip_norm > 0:
             clip_by_global_norm_(grads, state.grad_clip_norm, grad_norm)
@@ -122,10 +140,14 @@ def build_train_step(config: Dict[str, Any]) -> Callable:
                         ema[k].add_((p - ema[k]) * (1.0 - ema_decay))
         state.step += 1
         thetas = thetas.detach()
+        loss, mean_abs, max_abs = loss.detach(), thetas.abs().mean(), thetas.abs().max()
+        if data_parallel:
+            loss, mean_abs = distributed.all_reduce_mean(torch.stack([loss, mean_abs]))
+            max_abs = distributed.all_reduce_max(max_abs)
         metrics = {
-            "loss": loss.detach(),
-            "mean_abs_shift": thetas.abs().mean(),
-            "max_abs_shift": thetas.abs().max(),
+            "loss": loss,
+            "mean_abs_shift": mean_abs,
+            "max_abs_shift": max_abs,
             "grad_norm": grad_norm.detach(),
         }
         return state, metrics

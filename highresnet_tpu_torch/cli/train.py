@@ -23,6 +23,11 @@ process per rank with
 
 NCCL joins the processes on cards, Gloo with ``--device cpu``. The run
 directory must be on storage every process reads; rank 0 writes it.
+
+The 2-D layout, ``"training": {"mesh": {"data": D, "view": M}}`` in the
+config, runs on D·M processes launched the same way (``--nproc-per-node
+D·M``): D replicas split the batch, and the M ranks of each replica split
+its views (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

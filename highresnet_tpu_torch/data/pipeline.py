@@ -258,12 +258,17 @@ class EpochCache:
             vals = [getattr(b, field) for b in batches]
             if vals[0] is not None:
                 arrays[field] = np.stack(vals)
+        # the view ranks of one replica build the same variant at once:
+        # each writes under its own names and renames, so no process reads
+        # or commits a file another is still writing
+        tmp = f".{os.getpid()}.tmp"
         for field, arr in arrays.items():
-            np.save(base + f".{field}.npy", arr)
+            np.save(base + f".{field}{tmp}.npy", arr)
+            os.replace(base + f".{field}{tmp}.npy", base + f".{field}.npy")
         meta = {"names": [list(b.names) for b in batches], "fields": sorted(arrays)}
-        with open(base + ".meta.json.tmp", "w") as f:
+        with open(base + ".meta.json" + tmp, "w") as f:
             json.dump(meta, f)
-        os.replace(base + ".meta.json.tmp", base + ".meta.json")  # commit marker
+        os.replace(base + ".meta.json" + tmp, base + ".meta.json")  # commit marker
 
     def _serve(self, variant: int):
         import json

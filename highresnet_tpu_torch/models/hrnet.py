@@ -14,6 +14,20 @@ Every parameter is drawn from an explicit ``torch.Generator`` on the CPU
 so one seed gives the same weights on every device. Parameters stay float32
 whatever the compute dtype and are cast at use (``models/layers.py``), as
 in the JAX package.
+
+``HRNet.shard_views(group)`` makes train mode split the views over the M
+ranks of a view group (the 2-D layout, ``parallel/mesh.py``), as JAX's step
+does with ``shard_views`` on a ``data x view`` mesh. Every rank holds its
+replica's whole batch and computes the anchor; rank v encodes views
+[v·L/M, (v+1)·L/M). A fusion round of ``half`` pairs with ``half % M == 0``
+is sharded: after ``gather_views`` rank v packs its pairs [j0, j1) =
+[v·half/M, (v+1)·half/M) from ``cat(x[:, j0:j1], x[:, 2·half−j1 : 2·half−j0])``,
+whose pair j' is exactly [x_{j0+j'} ‖ x_{2·half−1−j0−j'}], so the pack
+kernel runs unchanged on each rank's block, and the new state is the
+rank's block of views [j0, j1). The first round that does not split (fewer
+or an odd count of pairs) gathers the views, and it and every later round,
+the final mean, the decoder and everything after run replicated on each
+rank. Eval mode always runs the whole forward.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ from torch import nn
 
 from highresnet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, PReLU
 from highresnet_tpu_torch.ops.fusion import pack_pairs, pack_pairs_ref
+from highresnet_tpu_torch.parallel.distributed import gather_views, process_count, process_index
 
 
 def lower_median(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -95,19 +110,34 @@ class FusionNet(nn.Module):
             PReLU(1),
         )
 
-    def forward(self, x: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
-        # x: (B, L, C, H, W); alphas: (B, L)
-        b, l, c, h, w = x.shape
+    def forward(self, x: torch.Tensor, alphas: torch.Tensor, view_group=None) -> torch.Tensor:
+        # x: (B, L, C, H, W), or with view_group this rank's block of L/M views; alphas: (B, L)
+        b, _, c, h, w = x.shape
         pack = pack_pairs_ref if self.use_pallas_pack is False else pack_pairs
         alphas = alphas[:, :, None, None, None]
-        nviews = l
+        nviews = alphas.shape[1]
+        m = process_count(view_group) if view_group is not None else 1
+        sharded = m > 1
         while nviews // 2 > 0:
             half = nviews // 2
-            pair = pack(x)  # (B, half, 2C, H, W)
-            fused = self.fuse(pair.reshape(b * half, 2 * c, h, w)).reshape(b, half, c, h, w)
+            if sharded and half % m:  # this round and the rest run replicated
+                x, sharded = gather_views(x, view_group), False
+            if sharded:
+                x = gather_views(x, view_group)
+                v = process_index(view_group)
+                j0, j1 = v * half // m, (v + 1) * half // m
+                bob = slice(2 * half - j1, 2 * half - j0)
+                alice = x[:, j0:j1]
+                pair = pack(torch.cat([alice, x[:, bob]], dim=1))
+            else:
+                bob = slice(half, 2 * half)
+                alice = x[:, :half]
+                pair = pack(x)  # (B, half, 2C, H, W)
+            n = pair.shape[1]
+            fused = self.fuse(pair.reshape(b * n, 2 * c, h, w)).reshape(b, n, c, h, w)
             if self.alpha_residual:
-                a_bob = torch.flip(alphas[:, half : 2 * half], dims=(1,))
-                x = x[:, :half] + a_bob * fused
+                a_bob = torch.flip(alphas[:, bob], dims=(1,))
+                x = alice + a_bob * fused
                 alphas = alphas[:, :half]
             else:
                 x = fused
@@ -182,6 +212,13 @@ class HRNet(nn.Module):
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
         self.to(device=device)
 
+    view_group = None
+
+    def shard_views(self, group=None) -> None:
+        """Split train mode's views over the ranks of ``group`` (None: off;
+        see the module notes)."""
+        self.view_group = group
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """PyTorch's default conv init, drawn from ``generator`` in module order."""
@@ -197,11 +234,18 @@ class HRNet(nn.Module):
     def forward(self, lrs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
         b, l, h, w = lrs.shape
         refs = lower_median(lrs[:, : min(9, l)], dim=1)  # (B, H, W)
-        refs = refs[:, None].expand(b, l, h, w)
-        x = torch.stack([lrs, refs], dim=2).to(self.dtype)  # (B, L, 2, H, W)
-        states = self.encode(x.reshape(b * l, 2, h, w))
-        states = states.reshape(b, l, *states.shape[1:])
-        fused = self.fuse(states, alphas.to(states.dtype))  # (B, C, H, W)
+        group = self.view_group if self.training else None
+        if group is not None:  # this rank's block of views
+            m, v = process_count(group), process_index(group)
+            if l % m:
+                raise ValueError(f"the batch's {l} views do not divide over view={m}")
+            lrs = lrs[:, v * l // m:(v + 1) * l // m]
+        k = lrs.shape[1]
+        refs = refs[:, None].expand(b, k, h, w)
+        x = torch.stack([lrs, refs], dim=2).to(self.dtype)  # (B, k, 2, H, W)
+        states = self.encode(x.reshape(b * k, 2, h, w))
+        states = states.reshape(b, k, *states.shape[1:])
+        fused = self.fuse(states, alphas.to(states.dtype), group)  # (B, C, H, W)
         sr = self.decode(fused.to(self.decoder_dtype))  # (B, 1, 3H, 3W)
         return sr[:, 0].to(torch.float32)
 

@@ -48,12 +48,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     With ``synced`` set, each process of a data-parallel run holds one shard
     of the batch and train mode normalises over the global batch, as JAX's
     BatchNorm does on a sharded batch: the per-channel sums and counts are
-    summed over the ranks for the mean, then the squared deviations for the
-    biased variance; the running variance takes the global unbiased one.
-    Both sums are differentiable all-reduces, so the gradient is that of the
-    global batch. ``torch.nn.SyncBatchNorm`` refuses CPU tensors."""
+    summed over the ranks of ``group`` (None: every rank; the data group of
+    a 2-D layout, whose view ranks hold copies of the same rows) for the
+    mean, then the squared deviations for the biased variance; the running
+    variance takes the global unbiased one. Both sums are differentiable
+    all-reduces, so the gradient is that of the global batch.
+    ``torch.nn.SyncBatchNorm`` refuses CPU tensors."""
 
     synced = False
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.synced:
@@ -64,11 +67,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         c = x.shape[1]
         per_channel = (None, slice(None), None, None)
         local = torch.cat([x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() / c)])
-        total = all_reduce_sum(local)
+        total = all_reduce_sum(local, self.group)
         n = total[c]
         mean = total[:c] / n
         dev = x - mean[per_channel]
-        var = all_reduce_sum(torch.square(dev).sum(dim=(0, 2, 3))) / n
+        var = all_reduce_sum(torch.square(dev).sum(dim=(0, 2, 3)), self.group) / n
         y = dev * torch.rsqrt(var + self.eps)[per_channel]
         if self.affine:
             y = y * self.weight[per_channel] + self.bias[per_channel]

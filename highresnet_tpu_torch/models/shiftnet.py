@@ -24,11 +24,13 @@ image. Submodule names are the reference ``ShiftNet.pth`` keys
   attribute to 0 turns it off, as the parity checks do (the frameworks'
   masks cannot agree).
 - ``sync_batch()`` makes train mode see the global batch of a data-parallel
-  run (each process holds one shard): BatchNorm over the global batch, and
-  one dropout draw over the global (world · B, F) shape, of which each rank
-  keeps its own rows. A run's masks and generator state then do not depend
-  on the number of processes, as in JAX, whose dropout draws over the
-  global batch.
+  run (each process of ``group`` holds one shard; None: every process):
+  BatchNorm over the global batch, and one dropout draw over the global
+  (n · B, F) shape of the group's n ranks, of which each rank keeps the rows
+  of its index in the group. A run's masks and generator state then do not
+  depend on the number of processes, as in JAX, whose dropout draws over
+  the global batch; the view ranks of a 2-D layout, which hold the same
+  rows, draw the same mask.
 """
 
 from __future__ import annotations
@@ -94,13 +96,15 @@ class ShiftNet(nn.Module):
         self.fc2.weight.zero_()
 
     synced = False
+    group = None
 
-    def sync_batch(self, on: bool = True) -> None:
-        """Train on one rank's shard of a global batch (see the module notes)."""
-        self.synced = on
+    def sync_batch(self, on: bool = True, group=None) -> None:
+        """Train on one rank's shard of a global batch split over ``group``
+        (see the module notes)."""
+        self.synced, self.group = on, group
         for m in self.modules():
             if isinstance(m, BatchNorm2d):
-                m.synced = on
+                m.synced, m.group = on, group
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, 2, H, W) pairs -> (B, 2) float32 translations (dx, dy)."""
@@ -114,8 +118,8 @@ class ShiftNet(nn.Module):
             keep_prob = 1.0 - self.dropout
             rows, start = x.shape[0], 0
             if self.synced:  # the global draw; this rank's rows
-                start = process_index() * rows
-                rows = process_count() * rows
+                start = process_index(self.group) * rows
+                rows = process_count(self.group) * rows
             draw = torch.rand((rows, x.shape[1]), generator=generator, device=x.device)
             keep = draw[start:start + x.shape[0]] < keep_prob
             x = torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -24,6 +24,10 @@ ranks that share a card; under NCCL they run on the current CUDA device.
 Only ``all_reduce``, ``broadcast`` and ``all_gather`` are used, which both
 backends have. Sums over ranks come out bit-identical on every rank, so the
 ranks stay replicated step after step.
+
+Each collective takes a ``group=`` (None: every rank of the run): the 2-D
+layout (``parallel/mesh.py``) reduces batch statistics over its data group
+and gathers view blocks over its view group (``gather_views``).
 """
 
 from __future__ import annotations
@@ -76,12 +80,14 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def process_index() -> int:
-    return dist.get_rank() if is_initialized() else 0
+def process_index(group=None) -> int:
+    """This process's rank in ``group`` (None: the whole run)."""
+    return dist.get_rank(group) if is_initialized() else 0
 
 
-def process_count() -> int:
-    return dist.get_world_size() if is_initialized() else 1
+def process_count(group=None) -> int:
+    """The number of processes in ``group`` (None: the whole run)."""
+    return dist.get_world_size(group) if is_initialized() else 1
 
 
 def is_multihost() -> bool:
@@ -95,56 +101,86 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """A new tensor on x's device: x reduced over the ranks with ``op``."""
+def _all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """A new tensor on x's device: x reduced over the ranks of ``group`` with ``op``."""
     buf = x.detach().to(_comm_device(), copy=True)
-    dist.all_reduce(buf, op=op)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the backward sums the ranks' output gradients, so
-    each rank's input gets the gradient of the sum of every rank's loss."""
+    """Sum over the ranks of a group; the backward sums the ranks' output
+    gradients, so each rank's input gets the gradient of the sum of every
+    rank's loss."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce(x)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group=group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad)
+        return _all_reduce(grad, group=ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of x over the ranks, differentiable (see ``_AllReduceSum``)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of x over the ranks of ``group``, differentiable (see ``_AllReduceSum``)."""
+    return _AllReduceSum.apply(x, group)
 
 
-def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean of x over the ranks (no gradient)."""
-    return _all_reduce(x) / process_count()
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean of x over the ranks of ``group`` (no gradient)."""
+    return _all_reduce(x, group=group) / process_count(group)
 
 
-def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise max of x over the ranks (no gradient)."""
-    return _all_reduce(x, dist.ReduceOp.MAX)
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise max of x over the ranks of ``group`` (no gradient)."""
+    return _all_reduce(x, dist.ReduceOp.MAX, group)
 
 
 @torch.no_grad()
-def reduce_gradients_(grads: list[torch.Tensor]) -> None:
-    """Replace each gradient by its mean over the ranks: one all-reduce over
-    a flat buffer of every gradient, in the order given."""
-    flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads])).div_(process_count())
+def reduce_gradients_(grads: list[torch.Tensor], group=None) -> None:
+    """Replace each gradient by its mean over the ranks of ``group``: one
+    all-reduce over a flat buffer of every gradient, in the order given."""
+    flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]), group=group)
+    flat.div_(process_count(group))
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """(world, *x.shape): every rank's x, stacked in rank order, on x's device."""
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, *x.shape): the x of each of the n ranks of ``group``, stacked in
+    rank order, on x's device."""
     buf = x.detach().to(_comm_device()).contiguous()
-    parts = [torch.zeros_like(buf) for _ in range(process_count())]
-    dist.all_gather(parts, buf)
+    parts = [torch.zeros_like(buf) for _ in range(process_count(group))]
+    dist.all_gather(parts, buf, group=group)
     return torch.stack(parts).to(x.device)
+
+
+class _GatherViews(torch.autograd.Function):
+    """Forward: every rank's view block, concatenated on the view axis in
+    rank order. Backward: the gradients of the whole stack summed over the
+    ranks, then this rank's block (a reduce-scatter from ``all_reduce`` and
+    a slice: each rank's gradient holds only the uses its own computation
+    made of the stack)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.block = (process_index(group) * x.shape[1], x.shape[1])
+        parts = all_gather(x, group)  # (M, B, k, ...)
+        return torch.cat(parts.unbind(0), dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, k = ctx.block
+        return _all_reduce(grad, group=ctx.group).narrow(1, start, k).contiguous(), None
+
+
+def gather_views(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, M·k, ...) from each of the M ranks' (B, k, ...) blocks of the view
+    group, differentiable (see ``_GatherViews``)."""
+    return _GatherViews.apply(x, group)
 
 
 def broadcast_string(s: str) -> str:

@@ -4,7 +4,8 @@ The counterpart of ``highresnet_tpu/train/epoch.py``. Metrics accumulate on
 the device (sums for loss / mean shift / grad norm, a max for
 ``max_abs_shift``) and the epoch reads them back to the host once, at its
 end. In a multi-process run the step's metrics are already global and the
-epoch counts the scenes of every rank, so each rank ends with the same stats.
+epoch counts the scenes of every replica, so each rank ends with the same
+stats.
 """
 
 from __future__ import annotations
@@ -14,9 +15,6 @@ import warnings
 from typing import Any, Callable, Dict, Optional
 
 import torch
-
-from highresnet_tpu_torch.parallel.distributed import process_count
-
 
 def warp_window_px(t: Dict[str, Any]) -> float:
     """Accurate range of the loss-time Lanczos warp: ±3 px for the single
@@ -61,8 +59,10 @@ def run_train_epoch(
     step_fn: Callable,
     device: torch.device,
     steps_left: Optional[int] = None,
+    replicas: int = 1,
 ):
-    """Run train steps over one pass of ``loader`` (at most ``steps_left``).
+    """Run train steps over one pass of ``loader`` (at most ``steps_left``),
+    whose batches are one of ``replicas`` equal shards of each global batch.
 
     Returns (state, stats, n_steps); stats has train_loss (weighted per
     scene), mean_abs_shift, grad_norm, max_abs_shift and seconds.
@@ -71,11 +71,10 @@ def run_train_epoch(
     peak = None
     n_seen = 0
     n_steps = 0
-    world = process_count()  # equal local batches (drop_last): global = world x local
     t0 = time.time()
     for batch in loader:
         state, m = step_fn(state, *batch_to_device(batch, device))
-        n = len(batch.names) * world
+        n = len(batch.names) * replicas  # equal shards (drop_last)
         contrib = torch.stack([m["loss"] * n, m["mean_abs_shift"], m["grad_norm"]])
         sums = contrib if sums is None else sums + contrib
         peak = m["max_abs_shift"] if peak is None else torch.maximum(peak, m["max_abs_shift"])

@@ -5,8 +5,11 @@ the val score is the mean of ESA / model cPSNR ratios (lower is better,
 < 1 beats the ESA baseline); without it, the mean of −shift_cPSNR.
 
 With ``shard=True`` (a multi-process run, eval batch a multiple of the
-world size) each rank scores its rows of every batch and the scores are
-all-gathered in scene order, so every rank computes the same val score.
+size of ``group``, the data group: None for every rank) each rank scores its
+rows of every batch and the scores are all-gathered over the group in scene
+order, so every rank computes the same val score. The view ranks of a 2-D
+layout each score their replica's rows with the whole forward, as JAX's
+eval runs over ``data`` only.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ def evaluate_model(
     sample_rng=None,
     device: torch.device | str = "cuda",
     shard: bool = False,
+    group=None,
 ):
     """Validation score over full-resolution scenes.
 
@@ -83,7 +87,7 @@ def evaluate_model(
         batches = build_val_batches(val_scenes, min_l, top_k, beta, batch_size, rng=sample_rng)
     pending = []  # (names, device scores)
     first_srs = first_hr = None
-    rank, world = (process_index(), process_count()) if shard else (0, 1)
+    rank, world = (process_index(group), process_count(group)) if shard else (0, 1)
     for names, host_args in batches:
         rows, ragged = divmod(len(host_args[0]), world)
         if ragged:
@@ -94,7 +98,7 @@ def evaluate_model(
             first_srs, first_hr = srs, host_args[2][0]
         pending.append((names, scores))
     if shard and pending:  # one gather: (world, batches, rows) -> each batch in scene order
-        gathered = all_gather(torch.stack([scores for _, scores in pending]))
+        gathered = all_gather(torch.stack([scores for _, scores in pending]), group)
         scores = gathered.transpose(0, 1).reshape(len(pending), -1)
         pending = [(names, s) for (names, _), s in zip(pending, scores)]
 

@@ -7,12 +7,14 @@ steps (``epoch.py``), validation on pre-collated batches
 stop, and the full resumable state (``checkpoint.py``).
 
 Across processes (``parallel/``; HRN_COORDINATOR or HRN_DISTRIBUTED=auto)
-each rank trains on its shard of the train list at B / world scenes a step,
-with the step's collectives making the ranks' step the one-process step at
-batch B. Every rank computes the same val scores, so selection, the plateau
-scheduler and early stop decide alike; rank 0 names the run directory,
-writes the checkpoints and TensorBoard and prints. The ranks are checked to
-hold identical state after setup, after a resume, and at the end.
+each replica trains on its shard of the train list at B / D scenes a step
+(D the data size: the world, or ``training.mesh``'s ``data``, whose view
+ranks split each replica's views), with the step's collectives making the
+ranks' step the one-process step at batch B. Every rank computes the same
+val scores, so selection, the plateau scheduler and early stop decide
+alike; rank 0 names the run directory, writes the checkpoints and
+TensorBoard and prints. The ranks are checked to hold identical state
+after setup, after a resume, and at the end.
 
 One difference from the JAX loop: a resumed run sets the train loader's
 epoch counter to the epoch it resumes at, so it draws the same views and
@@ -94,7 +96,7 @@ def train_and_get_best_model(
         raise FileNotFoundError(f"no scenes under {data_dir}/train/(RED|NIR)")
     train_list, val_list = train_val_split(scene_dirs, t["val_proportion"], seed=1)
 
-    local_train_list = shard_for_hosts(train_list, layout.rank, layout.world)
+    local_train_list = shard_for_hosts(train_list, layout.d, layout.data)
     check_local_shard(layout, len(local_train_list))
     loader = build_train_loader(t, local_train_list, seed=seed, data_dir=data_dir, layout=layout)
     pieces = build_models_and_steps(config, device, seed=seed, train_list=train_list,
@@ -127,6 +129,7 @@ def train_and_get_best_model(
                 top_k=t["n_views"], beta=t["beta"], batch_size=eval_batch,
                 return_images=want_images, prebuilt_batches=batches,
                 sample_rng=sample_rng, device=device, shard=pieces.eval_shard,
+                group=layout.data_group,
             )
 
         if not extra_val_batches:
@@ -163,6 +166,7 @@ def train_and_get_best_model(
         state, estats, n_steps = run_train_epoch(
             loader, state, step_fn, device,
             steps_left=None if max_steps is None else max_steps - steps_done,
+            replicas=layout.data,
         )
         steps_done += n_steps
         train_loss = estats["train_loss"]

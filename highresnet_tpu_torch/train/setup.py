@@ -4,18 +4,18 @@ The counterpart of ``highresnet_tpu/train/setup.py``, for one process of a
 data-parallel run (``parallel/mesh.py::DataParallel``; one process alone by
 default):
 
-- ``build_train_loader``: the port's ``BatchLoader`` over this rank's shard
-  of the train list at the local batch, seeded ``seed + 7919 · rank``,
-  dropping ragged batches when there are several ranks, wrapped in the mmap
-  ``EpochCache`` when ``training.epoch_cache_variants > 0``, under the JAX
-  package's cache key;
+- ``build_train_loader``: the port's ``BatchLoader`` over this replica's
+  shard of the train list at the local batch, seeded ``seed + 7919 · d``
+  (d the data index: the view ranks of one replica read the same batches),
+  dropping ragged batches when there are several ranks or a
+  ``training.mesh``, wrapped in the mmap ``EpochCache`` when
+  ``training.epoch_cache_variants > 0``, under the JAX package's cache key;
 - ``build_models_and_steps``: the seeded train state, the weights of
   ``training.init_params_from`` (another run's ``best/``), the ShiftNet
   warm-start (``training.shiftnet_warmup_steps``, from the global list on
   every rank), the check that the ranks start identical, the train/eval
-  steps, and the eval batch rounded up to a multiple of the world size.
-
-``training.mesh`` is refused by ``setup_data_parallel``.
+  steps (the train step view-sharded under a view axis), and the eval
+  batch rounded up to a multiple of the data size.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int, d
         create_patches=t.get("create_patches", True),
         patch_size=t["patch_size"],
         shuffle=t.get("shuffle", True),
-        seed=seed + 7919 * layout.rank,  # decorrelate the ranks' view/patch sampling
+        seed=seed + 7919 * layout.d,  # decorrelate the replicas' view/patch sampling
         num_workers=t.get("n_workers", 4),
         drop_last=layout.drop_last,
         augment=t.get("augment_dihedral", False),
@@ -69,7 +69,7 @@ def build_train_loader(t: Dict[str, Any], train_list: List[str], *, seed: int, d
     proto_key = (
         f"b{layout.local_batch}_L{t['min_L']}_k{t['n_views']}_p{t['patch_size']}"
         f"_c{int(t.get('create_patches', True))}_sh{int(t.get('shuffle', True))}"
-        f"_d{int(layout.drop_last)}_s{seed}_h{layout.rank}_n{len(train_list)}"
+        f"_d{int(layout.drop_last)}_s{seed}_h{layout.d}_n{len(train_list)}"
         f"_a{int(t.get('augment_dihedral', False))}_be{t['beta']:g}"
         f"_vv{float(t.get('variable_views_p', 0.0) or 0.0):g}"
     )
@@ -86,7 +86,7 @@ class RunPieces(NamedTuple):
     register_warmup: int
     eval_step: Callable
     eval_batch: int
-    eval_shard: bool  # each rank scores its rows of every val batch
+    eval_shard: bool  # each replica scores its rows of every val batch
 
 
 @torch.no_grad()
@@ -172,13 +172,13 @@ def build_models_and_steps(config: Dict[str, Any], device: torch.device, *, seed
             print(f"init: params loaded from {init_from}/best", flush=True)
     maybe_warmstart_shiftnet(state, t, train_list, seed, is_primary=layout.primary)
     assert_replicated(replicated_groups(state), "after the seeded init and the warm-start")
-    train_step = build_train_step(config, data_parallel=layout.synced)
+    train_step = build_train_step(config, layout)
     register_warmup = int(t.get("register_warmup_epochs", 0) or 0)
     warm_train_step = None
     if register_warmup > 0 and t.get("register", True):
         warm_cfg = copy.deepcopy(config)
         warm_cfg["training"]["register"] = False
-        warm_train_step = build_train_step(warm_cfg, data_parallel=layout.synced)
+        warm_train_step = build_train_step(warm_cfg, layout)
     eval_step = build_eval_step(state.hrnet)
     eval_batch = layout.eval_batch(t.get("eval_batch_size", 1))
     return RunPieces(state, train_step, warm_train_step, register_warmup, eval_step,

@@ -16,18 +16,28 @@ The step updates the state in place and returns its metrics as device
 tensors (no host sync): ``loss``, ``mean_abs_shift``, ``max_abs_shift``
 and ``grad_norm`` (of the gradients before any clipping).
 
-``data_parallel=True`` builds the step of one process of a multi-process
-run, on its shard of the global batch, so that the ranks together take the
-step one process takes on the whole batch: ShiftNet sees the global batch
-(``ShiftNet.sync_batch``), the shift penalty squares the mean over every
-rank's shifts, the gradients are averaged over the ranks in one flat
-all-reduce before the global norm, clip and Adam, and the metrics are
-global (loss and mean shift averaged, max shift the max over ranks).
+A synced ``layout`` (``parallel/mesh.py::DataParallel``) builds the step of
+one process of a multi-process run, on its replica's shard of the global
+batch, so that the ranks together take the step one process takes on the
+whole batch: ShiftNet sees the global batch (``ShiftNet.sync_batch`` over
+the data group), the shift penalty squares the mean over every replica's
+shifts, the gradients are averaged over all ranks in one flat all-reduce
+before the global norm, clip and Adam, and the metrics are global (loss
+and mean shift averaged over the data group, max shift its max).
+
+With a view axis (``layout.view`` M > 1) HRNet splits the views over the
+view group (``HRNet.shard_views``) and the rest of the step runs replicated
+on the M view ranks of a replica. Every rank backpropagates its own,
+unscaled loss; ``gather_views``' backward sums over the view group, so an
+encoder or fusion gradient is M times the rank's share of the replica's
+gradient and a tail gradient (decoder, ShiftNet) M-fold replicated. Either
+way the mean over all D·M ranks is the mean over the D replicas of their
+whole-batch gradients: the one-process gradient.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +48,7 @@ from highresnet_tpu_torch.ops.lanczos_fused import training_warp
 from highresnet_tpu_torch.ops.losses import LOSS_METRICS, crop_mask, registered_loss
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
 from highresnet_tpu_torch.parallel import distributed
+from highresnet_tpu_torch.parallel.mesh import DataParallel
 from highresnet_tpu_torch.train.state import TrainState, clip_by_global_norm_, global_norm
 
 REGISTER_SIZE = 128  # default ShiftNet input crop (the reference's fc geometry)
@@ -61,14 +72,18 @@ def register_and_warp(
     return training_warp(srs, shifts, warp_int_range, use_pallas_warp), thetas
 
 
-def global_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean of x over every rank's elements (equal shards), differentiable."""
-    return distributed.all_reduce_sum(torch.mean(x)) / distributed.process_count()
+def global_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean of x over the elements of every rank of ``group`` (equal shards),
+    differentiable."""
+    return distributed.all_reduce_sum(torch.mean(x), group) / distributed.process_count(group)
 
 
-def build_train_step(config: Dict[str, Any], data_parallel: bool = False) -> Callable:
+def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = None) -> Callable:
     """Returns step(state, lrs, alphas, hrs, hr_maps) -> (state, metrics);
-    the batch tensors are on the state's device."""
+    the batch tensors are on the state's device. Without a synced
+    ``layout`` the step is one process's."""
+    synced = layout is not None and layout.synced
+    data_group, view_group = (layout.data_group, layout.view_group) if synced else (None, None)
     t = config["training"]
     lam = t["lambda"]
     patch = t["patch_size"]
@@ -104,8 +119,8 @@ def build_train_step(config: Dict[str, Any], data_parallel: bool = False) -> Cal
         if hrs.device not in masks:
             masks[hrs.device] = border_mask.to(hrs.device)
         mask = masks[hrs.device][None] * hr_maps
-        loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric,
-                               mean=global_mean if data_parallel else torch.mean)
+        mean = (lambda x: global_mean(x, data_group)) if synced else torch.mean
+        loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric, mean=mean)
         if range_penalty > 0:
             overflow = F.relu(srs - 1.0) + F.relu(-srs)
             loss = loss + range_penalty * torch.mean(overflow.float())
@@ -114,7 +129,8 @@ def build_train_step(config: Dict[str, Any], data_parallel: bool = False) -> Cal
     def step(state: TrainState, lrs, alphas, hrs, hr_maps):
         state.hrnet.train()
         state.shiftnet.train()
-        state.shiftnet.sync_batch(data_parallel)
+        state.hrnet.shard_views(view_group)
+        state.shiftnet.sync_batch(synced, data_group)
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         # every parameter gets a gradient, zero where unused (the unregistered
         # arm's ShiftNet), so Adam's moments and step count advance for all
@@ -126,7 +142,7 @@ def build_train_step(config: Dict[str, Any], data_parallel: bool = False) -> Cal
         loss, thetas = loss_fn(state, lrs, alphas, hrs, hr_maps)
         loss.backward()
         grads = [p.grad for p in params]
-        if data_parallel:
+        if synced:
             distributed.reduce_gradients_(grads)
         grad_norm = global_norm(grads)
         if state.grad_clip_norm > 0:
@@ -141,9 +157,9 @@ def build_train_step(config: Dict[str, Any], data_parallel: bool = False) -> Cal
         state.step += 1
         thetas = thetas.detach()
         loss, mean_abs, max_abs = loss.detach(), thetas.abs().mean(), thetas.abs().max()
-        if data_parallel:
-            loss, mean_abs = distributed.all_reduce_mean(torch.stack([loss, mean_abs]))
-            max_abs = distributed.all_reduce_max(max_abs)
+        if synced:
+            loss, mean_abs = distributed.all_reduce_mean(torch.stack([loss, mean_abs]), data_group)
+            max_abs = distributed.all_reduce_max(max_abs, data_group)
         metrics = {
             "loss": loss,
             "mean_abs_shift": mean_abs,

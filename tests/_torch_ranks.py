@@ -8,7 +8,9 @@ piece of the port on its shard and writes what it computed to ``<out>``
 (``torch.save``). Modes:
 
 - ``bn``: the synced ``BatchNorm2d`` in train mode on this rank's rows;
-- ``step``: one ``build_train_step(..., data_parallel=True)`` step;
+- ``step``: one ``build_train_step(config, layout)`` step on the layout of
+  the config (its ``training.mesh``, else one data axis over the world),
+  each rank on its replica's rows (all views);
 - ``loop``: ``train_and_get_best_model`` on the config in ``<in>``.
 
 ``run_loop`` is also the one-process oracle the tests run in their own
@@ -72,24 +74,35 @@ def step_result(state, metrics) -> dict:
 
 
 def run_step(inp: dict, rank: int, world: int) -> dict:
+    """One step; ``packs`` lists the views of each pair pack the forward made."""
+    from highresnet_tpu_torch.models import hrnet
+    from highresnet_tpu_torch.parallel.mesh import setup_data_parallel
     from highresnet_tpu_torch.train.step import build_train_step
 
+    layout = setup_data_parallel(inp["config"]["training"], torch.device("cpu"))
     state = port_state(inp)
-    step = build_train_step(inp["config"], data_parallel=True)
-    args = [rows(torch.from_numpy(a), rank, world) for a in inp["batch"]]
-    state, metrics = step(state, *args)
-    return step_result(state, metrics)
+    step = build_train_step(inp["config"], layout)
+    args = [rows(torch.from_numpy(a), layout.d, layout.data) for a in inp["batch"]]
+    packs, real = [], hrnet.pack_pairs
+    hrnet.pack_pairs = lambda x: (packs.append(x.shape[1]), real(x))[1]
+    try:
+        state, metrics = step(state, *args)
+    finally:
+        hrnet.pack_pairs = real
+    return {**step_result(state, metrics), "packs": packs}
 
 
 def run_loop(config: dict, run_dir: str) -> dict:
-    """``train_and_get_best_model`` with its epochs, final state and file
-    writes recorded: per-epoch train stats, val history, best score, one
-    checksum per model of the final state, and the files this process wrote."""
+    """``train_and_get_best_model`` with its steps, epochs, final state and
+    file writes recorded: per-step and per-epoch train loss, val history,
+    best score, one checksum per model of the final state, and the files this
+    process wrote."""
     from highresnet_tpu_torch.parallel import distributed
-    from highresnet_tpu_torch.train import checkpoint, loop
+    from highresnet_tpu_torch.train import checkpoint, loop, setup
 
-    epochs, states, writes = [], [], []
-    real_epoch, real_atomic = loop.run_train_epoch, checkpoint._atomic
+    steps, epochs, states, writes = [], [], [], []
+    real = loop.run_train_epoch, checkpoint._atomic, setup.build_train_step
+    real_epoch, real_atomic, real_build = real
 
     def epoch(loader, state, *args, **kwargs):
         state, stats, n = real_epoch(loader, state, *args, **kwargs)
@@ -101,15 +114,26 @@ def run_loop(config: dict, run_dir: str) -> dict:
         writes.append(path)
         return real_atomic(path, write)
 
-    loop.run_train_epoch, checkpoint._atomic = epoch, atomic
+    def build(*args, **kwargs):
+        step = real_build(*args, **kwargs)
+
+        def recorded(state, *batch):
+            state, metrics = step(state, *batch)
+            steps.append(metrics["loss"].item())
+            return state, metrics
+
+        return recorded
+
+    loop.run_train_epoch, checkpoint._atomic, setup.build_train_step = epoch, atomic, build
     try:
         out = loop.train_and_get_best_model(config, run_dir=run_dir, device="cpu")
     finally:
-        loop.run_train_epoch, checkpoint._atomic = real_epoch, real_atomic
+        loop.run_train_epoch, checkpoint._atomic, setup.build_train_step = real
     final = states[-1]
     return {
         "rank": distributed.process_index(),
         "world": distributed.process_count(),
+        "step_losses": steps,
         "losses": [e["train_loss"] for e in epochs],
         "grad_norms": [e["grad_norm"] for e in epochs],
         "vals": [s for _, s in out["val_history"]],
@@ -130,25 +154,27 @@ def launch(mode: str, inp: dict, tmp_path, world: int = 2, tag: str = "") -> lis
 
 
 def launch_jobs(jobs: list, tmp_path, world: int = 2) -> list:
-    """Start the ranks of every (mode, inp, tag) job together, each job its
-    own group; wait under CHILD_TIMEOUT_S, killing every child when one
-    fails. Returns each job's rank outputs."""
+    """Start the ranks of every (mode, inp, tag[, world]) job together, each
+    job its own group of its own world (``world`` where the job names none);
+    wait under CHILD_TIMEOUT_S, killing every child when one fails. Returns
+    each job's rank outputs."""
     import subprocess
 
     tmp_path = str(tmp_path)
     env = {k: v for k, v in os.environ.items() if not k.startswith("HRN_")}
-    env["OMP_NUM_THREADS"] = "2"  # tests run beside other workers
     runs = []  # (job index, rank, out, log)
     procs = []
     try:
-        for j, (mode, inp, tag) in enumerate(jobs):
+        for j, (mode, inp, tag, *job_world) in enumerate(jobs):
             name = os.path.join(tmp_path, f"{mode}{tag}")
             torch.save(inp, f"{name}_in.pt")
-            for r in range(world):
+            n = job_world[0] if job_world else world
+            env["OMP_NUM_THREADS"] = "2" if n <= 2 else "1"  # tests run beside other workers
+            for r in range(n):
                 out, log = f"{name}_out{r}.pt", f"{name}_log{r}.txt"
                 with open(log, "w") as f:
                     procs.append(subprocess.Popen(
-                        [sys.executable, os.path.abspath(__file__), mode, str(r), str(world),
+                        [sys.executable, os.path.abspath(__file__), mode, str(r), str(n),
                          f"{name}_store", f"{name}_in.pt", out],
                         env=env, stdout=f, stderr=subprocess.STDOUT))
                 runs.append((j, r, out, log))
@@ -162,13 +188,13 @@ def launch_jobs(jobs: list, tmp_path, world: int = 2) -> list:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    results = [[None] * world for _ in jobs]
+    results = [[] for _ in jobs]
     for p, (j, r, out, log) in zip(procs, runs):
         if p.returncode != 0:
             with open(log) as f:
                 raise AssertionError(f"rank {r} of {jobs[j][0]}{jobs[j][2]} exited "
                                      f"{p.returncode}:\n{f.read()[-4000:]}")
-        results[j][r] = torch.load(out, weights_only=False)
+        results[j].append(torch.load(out, weights_only=False))
     return results
 
 

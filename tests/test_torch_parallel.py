@@ -11,8 +11,9 @@ Each two-rank case starts two child processes (``tests/_torch_ranks.py``,
   1e-5, parameters atol 2e-5, JAX's own tolerances there);
 - the two-rank step with dropout on against the port's one-process step
   (same tolerances; one global mask draw, the generators end equal);
-- the layout's refusals (``ValueError`` as in JAX) and ``maybe_initialize``'s
-  reading of the environment.
+- the layout's checks (``ValueError`` as in JAX; ``training.mesh`` across
+  processes, which JAX refuses, is the port's layout) and
+  ``maybe_initialize``'s reading of the environment.
 """
 
 import copy
@@ -124,12 +125,19 @@ def _to_port(params, batch_stats) -> dict:
     return sd
 
 
-def _jax_step(inp: dict, monkeypatch, capture: bool = False):
-    """The JAX single-device step (dropout the identity) from the port's
-    weights: real Adam, or with ``capture`` an optimizer whose state becomes
-    the gradient. Returns (loss, post-step params or gradients, port names)."""
+def _jax_step(inp: dict, monkeypatch, capture: bool = False, jax_mesh=None):
+    """The JAX step on ``inp``'s config (dropout the identity) from the port's
+    weights, on one device or, with ``jax_mesh``, on JAX's 2-D data x view layout
+    (tests/test_parallel.py's specs): real Adam, or with ``capture`` an
+    optimizer whose state becomes the gradient. Returns (loss, post-step
+    params or gradients, port names)."""
+    from jax.sharding import PartitionSpec as P
+
+    from highresnet_tpu.parallel.mesh import put_with_specs
+
+    config = inp["config"]
     monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
-    tx = jax_make_optimizer(DP_CONFIG["training"]["lr"])
+    tx = jax_make_optimizer(config["training"]["lr"])
     if capture:
         tx = optax.GradientTransformation(
             lambda p: jax.tree.map(jnp.zeros_like, p),
@@ -141,9 +149,13 @@ def _jax_step(inp: dict, monkeypatch, capture: bool = False):
               "shiftnet": sn_params}
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                           opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
-    step = jax_step.build_train_step(JaxHRNet(config=DP_CONFIG["network"]), JaxShiftNet(),
-                                     DP_CONFIG)
-    new, metrics = step(state, *inp["batch"])
+    step = jax_step.build_train_step(JaxHRNet(config=config["network"]), JaxShiftNet(), config,
+                                     mesh=jax_mesh, shard_views=jax_mesh is not None)
+    batch = inp["batch"]
+    if jax_mesh is not None:
+        batch = put_with_specs(jax_mesh, batch, (P("data", "view", None, None), P("data", "view"),
+                                             P("data", None, None), P("data", None, None)))
+    new, metrics = step(state, *batch)
     new = jax.device_get(new)
     monkeypatch.undo()
     tree = new.opt_state if capture else new.params
@@ -201,11 +213,12 @@ def test_two_rank_step_matches_jax_step(tmp_path, monkeypatch):
 
 
 def _assert_ranks_equal(ranks) -> None:
-    a, b = ranks
-    assert a["metrics"] == b["metrics"]
-    for k in a["params"]:
-        assert torch.equal(a["params"][k], b["params"][k]), k
-    assert torch.equal(a["generator"], b["generator"])
+    a, *rest = ranks
+    for b in rest:
+        assert a["metrics"] == b["metrics"]
+        for k in a["params"]:
+            assert torch.equal(a["params"][k], b["params"][k]), k
+        assert torch.equal(a["generator"], b["generator"])
 
 
 def test_two_rank_step_with_dropout_matches_one_process(tmp_path):
@@ -245,11 +258,16 @@ def _t(**training):
 
 def test_layout_refusals(monkeypatch):
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"data\*view = 2\*1 exceeds the 1 processes"):
         mesh.setup_data_parallel(_t(mesh={"data": 2}), cpu)  # one process
     _Group(monkeypatch, world=3)
-    with pytest.raises(ValueError, match="single-controller"):
-        mesh.setup_data_parallel(_t(mesh={"data": 2}), cpu)
+    # JAX refuses training.mesh across hosts ("a single-controller feature");
+    # every multi-card run of the port is multi-process, so it takes the layout
+    meshed = mesh.setup_data_parallel(_t(batch_size=6, mesh={"data": 3}), cpu)
+    assert meshed == mesh.DataParallel(rank=0, world=3, synced=True, local_batch=2, view=1,
+                                       meshed=True)
+    with pytest.raises(ValueError, match=r"data\*view = 1\*2 leaves ranks of the 3 processes"):
+        mesh.setup_data_parallel(_t(mesh={"data": 1, "view": 2}), cpu)
     with pytest.raises(ValueError, match=r"divisible by the global device count \(8 % 3\)"):
         mesh.setup_data_parallel(_t(), cpu)
     layout = mesh.setup_data_parallel(_t(batch_size=6), cpu)

@@ -29,7 +29,7 @@ NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.sea
                "registration.session", "registration.app", "models.vgg",
                "cli.export_vgg_weights", "utils.display", "utils.heatmap_canvas",
                "parallel.distributed", "parallel.mesh", "cli.save_clearance",
-               "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness")
+               "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun")
 
 NET = {
     "encoder": {"in_channels": 2, "num_layers": 1, "kernel_size": 3, "channel_size": 16},

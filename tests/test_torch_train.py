@@ -304,9 +304,10 @@ def test_ema_and_unknown_loss(batch):
     ("mesh", {"data": 2}),
 ])
 def test_options_outside_the_slice_raise(train_root, key, value):
+    """A layout the run's processes cannot hold: one process, two replicas."""
     from highresnet_tpu_torch.train.loop import train_and_get_best_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="exceeds the 1 processes"):
         train_and_get_best_model(_config(train_root, **{key: value}), device="cpu")
 
 

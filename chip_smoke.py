@@ -101,6 +101,17 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      registered train step of stage 1 timed; ms per scene of each serving
      path and x8 TTA's alignment alone; one val scene under ``--tta 8`` and
      ``--registered`` on the GPU against the port's CPU path.
+ 12b. [examples] every driver of ``highresnet_tpu_torch/examples/`` through
+     its own ``main`` at a smoke protocol (one synthetic misaligned set of
+     12 scenes, 8 views of 48 px, made once; 1 epoch a run, batch 8; the
+     production widths, ShiftNet at register_size 2·patch; the cuts
+     printed): each driver's K1/K2/K3 launches counted from 0, asserted
+     non-zero where the driver runs the kernel, TF32 off after each; the
+     scoring legs (MFSR/one view/bicubic, the views sweep, the TTA arms,
+     frac_cpsnr) on the card against the port's CPU path on the same
+     weights within 0.01 dB per scene; K3 at frac_cpsnr's (625, 144, 144)
+     against its plain version (limit 1e-5) and timed as in [warp]; each
+     driver's seconds and summary on a line of its own.
  13. [registration] the registration toolkit on a seeded smooth 384 px
      field (the HR frame size) with a cloud blob and a 4 px border masked,
      its template shifted by a known (0.7, -0.4) px (scipy, order 3), and a
@@ -126,8 +137,9 @@ events (median of 10 replays); ``call_ms`` is one call between two events,
 the wrapper's host part included (median of 20), the series of the earlier
 runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
 Then one JSON line with the kernels (``launches`` sums the predict, train,
-dist (both ranks), view (every rank), lab and flagship runs, the fused
-warm-start included; K3's entry also holds its serving shapes;
+dist (both ranks), view (every rank), lab, flagship and examples runs,
+the fused warm-start included; K3's entry also holds its serving shapes and
+frac_cpsnr's;
 ``bound_ms`` is the least time the card could take for the timed call,
 from its bytes at 3.35 TB/s and its operations at the peak rate of their
 type; ``library_ms`` is one PyTorch call computing the same function, or
@@ -137,6 +149,7 @@ Needs CUDA; it imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import statistics
@@ -1770,6 +1783,251 @@ def phase_flagship(card: str, tmp: str) -> dict:
     return {k: warm[k] + trained[k] + served[k] for k in trained}
 
 
+# [examples]: every quality-experiment driver at a smoke protocol on one set
+EXAMPLES = dict(scenes_per_channel=6, views=8, size=48, patch=32, batch=8, epochs=1,
+                hr_shift_sigma=1.25, val_proportion=0.25, test_scenes_per_channel=2,
+                max_scenes=3, warmup_steps=100)
+FRAC_WARP = (625, 144, 144)  # register_ablation's fractional search of one 48 px scene
+# the kernels each driver must launch on the card (PERF.md's kernel table: K1
+# every HRNet forward, K2 every training backward, K3 TTA/ensemble alignment
+# and frac_cpsnr)
+EXAMPLE_KERNELS = {
+    "quality_experiment": ("pack", "unpack"),
+    "quality_report": ("pack",),
+    "test_model": ("pack",),
+    "display_dataset": (),
+    "views_ablation": ("pack",),
+    "register_ablation": ("pack", "unpack", "lanczos"),
+    "tta_experiment": ("pack", "lanczos"),
+    "flagship_recipe": ("pack", "unpack", "lanczos"),
+    "ensemble_experiment": ("pack", "unpack", "lanczos"),
+    "recipe_report": (),
+    "flagship_config_report": ("pack", "unpack", "lanczos"),  # drive trains the four arms
+    "precision_ablation": ("pack",),
+    "pipeline_bench": (),
+}
+
+
+def run_example(name: str, argv: list, runs: dict, summary, call=None) -> object:
+    """One driver's main (or ``call()``, an entry point of its module) on the
+    card with the launch counts set to 0 just before and read just after;
+    TF32 must be off after it."""
+    import importlib
+
+    module = importlib.import_module(f"highresnet_tpu_torch.examples.{name}")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = call() if call is not None else module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"[examples] {name} left TF32 on")
+    missing = [k for k in EXAMPLE_KERNELS[name] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[examples] {name} launched no {missing}: {counts}")
+    runs[name] = {"seconds": seconds, "counts": counts}
+    print(f"[examples] {name}: {seconds:.1f} s, launches K1 {counts['pack']} K2 {counts['unpack']} "
+          f"K3 {counts['lanczos']} K4 {counts['pack_dma']}; {summary(out)}", flush=True)
+    return out
+
+
+def examples_gpu_vs_cpu(config: dict, run_dir: str, root: str) -> None:
+    """The scoring legs on the card against the port's CPU path on the same
+    weights and draws, per scene within SCORE_ATOL_DB: MFSR / one view /
+    bicubic, the views sweep, the TTA arms and frac_cpsnr."""
+    from highresnet_tpu_torch.eval.evaluator import _Forward, load_model
+    from highresnet_tpu_torch.examples import register_ablation, tta_experiment, views_ablation
+    from highresnet_tpu_torch.exp import harness
+
+    val = harness.held_out_scenes(root, EXAMPLES["val_proportion"], EXAMPLES["max_scenes"])
+    views = EXAMPLES["views"]
+    legs = {}
+    for device in ("cuda", "cpu"):
+        fwd = _Forward(load_model(config, run_dir, device), torch.device(device), host=False)
+        rows = harness.mfsr_rows(fwd, val, views, device)
+        sweep = views_ablation.sweep(fwd, val, (1, 2, 4, views), device)
+        tta_rows, _ = tta_experiment.run_split(fwd, val, views, len(val), "gpu-vs-cpu")
+        _, frac = register_ablation.score_arm(fwd, val, views, device)
+        legs[device] = {
+            "mfsr": [r[k] for r in rows for k in ("mfsr", "one_view", "bicubic")],
+            "views sweep": [x for k in sorted(sweep["per_k"]) for x in sweep["per_k"][k]]
+            + sweep["bicubic"],
+            "TTA rows": [r[a] for r in tta_rows for a in tta_experiment.ARMS],
+            "frac_cpsnr": frac,
+        }
+    for leg, got in legs["cuda"].items():
+        want = legs["cpu"][leg]
+        err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+        print(f"[examples] GPU vs CPU, {leg}: {len(got)} scores over {len(val)} scenes, "
+              f"max|diff| {err:.2e} dB (limit {SCORE_ATOL_DB})")
+        if not err <= SCORE_ATOL_DB:
+            raise AssertionError(f"[examples] {leg}: GPU and CPU scores differ by {err} dB")
+
+
+def examples_frac_warp(lanczos_fused, card: str) -> dict:
+    """K3 at register_ablation's shape: one 48 px scene's SR (144 px) warped
+    to the 625 placements of the 0.25 px grid over ±3 px, against the plain
+    warp, its output in a NaN-filled block; timed as [warp] times K3. The
+    SR goes in as frac_cpsnr passes it, expanded over the 625 placements
+    (stride 0): the bound counts one image read and 625 written."""
+    from highresnet_tpu_torch.examples.register_ablation import frac_grid
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n, h, w = FRAC_WARP
+    sr = torch.rand((h, w), generator=g, device="cuda")
+    img = sr.expand(n, h, w)
+    shift = frac_grid("cuda")
+    address = poison(FRAC_WARP, torch.float32)
+    got = lanczos_fused.lanczos_shift_cuda(img, shift)
+    check_poisoned(got, address, f"lanczos_shift_cuda at {FRAC_WARP}")
+    err = (got - lanczos_fused.lanczos_shift_ref(img, shift)).abs().max().item()
+    if not err <= WARP_ATOL:
+        raise AssertionError(f"lanczos kernel disagrees with its plain version at {FRAC_WARP}")
+    t = graph_times_ms({"K3": lambda: lanczos_fused.lanczos_shift_cuda(img, shift),
+                        "plain": lambda: lanczos_fused.lanczos_shift_ref(img, shift)})
+    moved = (sr.numel() + img.numel()) * img.element_size() + shift.numel() * shift.element_size()
+    flops = 2 * 2 * 7 * img.numel()
+    bound = bound_ms(moved, flops)
+    by = "bytes" if moved / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+    print(f"[examples] K3 at {FRAC_WARP} f32 (frac_cpsnr's 0.25 px grid over ±3 px, one SR "
+          f"expanded), output in a "
+          f"NaN-filled block: max|kernel - plain| {err:.3e} (limit {WARP_ATOL}); device time per "
+          f"call (CUDA graph of {GRAPH_CALLS} calls, median of {GRAPH_REPLAYS} replays, in turns) "
+          f"K3 {t['K3']:.4f} ms, plain {t['plain']:.4f} ms; bound {bound * 1e3:.3f} us "
+          f"({moved / 1e6:.2f} MB; {by}, {bound / t['K3']:.1%} of it); {card}")
+    return {"max_abs_err": err, "ms": t["K3"], "plain_ms": t["plain"], "bound_ms": bound,
+            "bound_by": by}
+
+
+def phase_examples(lanczos_fused, card: str, tmp: str) -> tuple[dict, dict]:
+    """Every driver of highresnet_tpu_torch/examples/ at a smoke protocol on
+    one synthetic misaligned set, through its own main(), at the production
+    network's widths; the launches of each (counted per driver, asserted
+    where the driver runs the kernel), TF32 off after each, the scoring legs
+    GPU vs CPU, and K3 at frac_cpsnr's shape. Returns the summed launches
+    and K3's reading at that shape."""
+    import importlib.util
+
+    from highresnet_tpu_torch.config import load_config
+    from highresnet_tpu_torch.examples import flagship_config_report
+    from highresnet_tpu_torch.exp import harness
+
+    ex = EXAMPLES
+    t_phase = time.perf_counter()
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "reports")
+    harness.ensure_dataset(root, scenes_per_channel=ex["scenes_per_channel"], views=ex["views"],
+                           lr_size=ex["size"], seed=0, detail=0.5,
+                           hr_shift_sigma=ex["hr_shift_sigma"])
+    print(f"[examples] smoke protocol, cut from each driver's defaults: one synthetic set of "
+          f"{2 * ex['scenes_per_channel']} misaligned scenes (sigma {ex['hr_shift_sigma']} px, "
+          f"{ex['views']} views of {ex['size']} px, made once, shared), {ex['epochs']} epoch a "
+          f"run, batch {ex['batch']}, val {ex['val_proportion']}, at most {ex['max_scenes']} "
+          f"scored scenes where a driver takes --max-scenes, a fresh test set of "
+          f"{2 * ex['test_scenes_per_channel']} scenes; widths as shipped (64 channels, patch "
+          f"{ex['patch']}, ShiftNet at register_size {2 * ex['patch']}); flagship_config_report's "
+          f"arc (drive: cli.train and cli.predict in this process) at 1 epoch a stage, batch "
+          f"{ex['batch']}, warm-start {ex['warmup_steps']} steps")
+    common = ["--views", str(ex["views"]), "--device", "cuda"]
+    train = ["--root", root, "--scenes-per-channel", str(ex["scenes_per_channel"]),
+             "--lr-size", str(ex["size"]), "--epochs", str(ex["epochs"]),
+             "--batch", str(ex["batch"]), "--patch", str(ex["patch"]), *common]
+    runs = {}
+    mean = lambda rows, k: float(np.mean([r[k] for r in rows]))
+
+    q = run_example("quality_experiment", [*train, "--val-proportion", str(ex["val_proportion"]),
+                                           "--out", f"{out}/QUALITY_REPORT.json"], runs,
+                    lambda r: f"val mfsr {r['val_mean_shift_cpsnr']['mfsr']:.3f} dB, "
+                              f"bicubic {r['val_mean_shift_cpsnr']['bicubic']:.3f}")
+    run_dir = sorted(glob.glob(os.path.join(root, "ckpt", "*")))[-1]
+    rows = run_example("quality_report", ["--data", root, "--checkpoint", run_dir, *common,
+                                          "--val-proportion", str(ex["val_proportion"])], runs,
+                       lambda rows: f"{len(rows)} scenes, mfsr {mean(rows, 'mfsr'):.3f} dB")
+    if rows != q["per_scene"]:
+        raise AssertionError("[examples] quality_report's rows differ from quality_experiment's "
+                             "on the same run dir")
+    cfg_path = os.path.join(tmp, "test_model.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"paths": {"prefix": root},
+                   "training": {"min_L": ex["views"], "n_views": ex["views"]}}, f)
+    run_example("test_model", ["--config", cfg_path, "--checkpoint", run_dir, "--device", "cuda",
+                               "--submission", os.path.join(tmp, "submission")], runs,
+                lambda t: f"{len(t)} scenes scored, mean {t['model'].astype(float).mean():.3f} dB")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("[examples] display_dataset: matplotlib is absent on this machine; the driver "
+              "was not run and drew nothing")
+    else:
+        run_example("display_dataset", ["--data", root, "--out", os.path.join(tmp, "png"),
+                                         "--n", "2"], runs,
+                    lambda paths: f"matplotlib present, {len(paths)} PNGs written")
+    run_example("views_ablation", ["--root", root, "--views", "1", "2", "4", str(ex["views"]),
+                                   "--val-proportion", str(ex["val_proportion"]),
+                                   "--device", "cuda", "--out", f"{out}/VIEWS_ABLATION.json"],
+                runs, lambda r: "by views " + ", ".join(
+                    f"{x['views']}: {x['mean_shift_cpsnr']:.3f}" for x in r["by_views"]))
+    run_example("register_ablation", [*train, "--sigma", str(ex["hr_shift_sigma"]),
+                                      "--val-proportion", str(ex["val_proportion"]),
+                                      "--max-scenes", str(ex["max_scenes"]),
+                                      "--out", f"{out}/REGISTER_ABLATION.json"], runs,
+                lambda r: ", ".join(f"{k} {v['mean_shift_cpsnr']:.3f}/{v['mean_fractional_cpsnr']:.3f}"
+                                    for k, v in r["protocols"][-1]["arms"].items())
+                + " dB (integer/fractional)")
+    run_example("tta_experiment", ["--root", root, "--run", run_dir, "--batch", "3",
+                                   "--val-proportion", str(ex["val_proportion"]),
+                                   "--splits", "val", *common, "--out", f"{out}/TTA_REPORT.json"],
+                runs, lambda r: f"val {r['val_split']['mean_shift_cpsnr']}")
+    run_example("flagship_recipe", [*train, "--test-root", os.path.join(tmp, "test"),
+                                    "--test-scenes-per-channel", str(ex["test_scenes_per_channel"]),
+                                    "--sigma", str(ex["hr_shift_sigma"]),
+                                    "--out", f"{out}/FLAGSHIP_RECIPE.json"], runs,
+                lambda r: "comparisons " + ", ".join(
+                    f"{k} {v['mean_db']:+.3f} dB" for k, v in r["comparisons"].items()))
+    run_example("ensemble_experiment", [*train, "--seeds", "0,1", "--tta", "8",
+                                        "--val-proportion", str(ex["val_proportion"]),
+                                        "--max-scenes", str(ex["max_scenes"]),
+                                        "--out", f"{out}/ENSEMBLE_REPORT.json"], runs,
+                lambda r: f"ensemble - best single {r['ensemble_minus_best_single_db']:+.3f} dB, "
+                          f"full stack - best single {r['full_stack_minus_best_single_db']:+.3f}")
+    run_example("recipe_report", ["--baseline", str(REPO / "RECIPE_FT_CTL.json"), "--candidate",
+                                  str(REPO / "RECIPE_FT_RP30.json"),
+                                  "--out", f"{out}/RECIPE_REPORT.json"], runs,
+                lambda r: f"{len(r['candidates'])} candidate against the checked-in baseline")
+
+    run_example("flagship_config_report", [], runs,
+                lambda r: "comparisons " + ", ".join(
+                    f"{k} {v['mean_db']:+.3f} dB" for k, v in r["comparisons"].items())
+                + f"; recommended-flow RuntimeWarnings {r['runtime_warnings_recommended_flow']}",
+                call=lambda: flagship_config_report.drive(
+                    os.path.join(tmp, "arc"), "cuda", f"{out}/FLAGSHIP_CONFIG_DRIVE.json",
+                    configs_dir=str(REPO / "configs"),
+                    scenes_per_channel=ex["scenes_per_channel"], lr_size=ex["size"],
+                    overrides={"training": {"num_epochs": ex["epochs"],
+                                            "batch_size": ex["batch"]}},
+                    warmup_steps=ex["warmup_steps"]))
+    run_example("precision_ablation", ["--device", "cuda",
+                                       "--out", f"{out}/PRECISION_ABLATION.json"], runs,
+                lambda r: "rms vs f32 " + ", ".join(
+                    f"{k} {v['rms_vs_f32']:.3e}" for k, v in r["variants"].items())
+                + f"; 50 dB delta bf16 {r['variants']['bf16']['delta_db_at_50db']:.4f}")
+    run_example("pipeline_bench", ["--root", os.path.join(tmp, "pipe"), "--scenes", "8",
+                                   "--views", str(ex["views"]), "--lr-size", str(ex["size"]),
+                                   "--patch", str(ex["patch"]), "--epochs", "1", "--workers", "2",
+                                   "--out", f"{out}/PIPELINE_BENCH.json"], runs,
+                lambda r: f"scenes/s png {r['png_scenes_per_sec']}, packed "
+                          f"{r['packed_scenes_per_sec']}, cache {r['cache_scenes_per_sec']} "
+                          f"(host, {r['protocol']['host_cores']} cores)")
+
+    config = load_config(overrides={"training": {"min_L": ex["views"], "n_views": ex["views"]}})
+    examples_gpu_vs_cpu(config, run_dir, root)
+    frac = examples_frac_warp(lanczos_fused, card)
+    total = {k: sum(r["counts"][k] for r in runs.values()) for k in read_counts()}
+    print(f"[examples] {len(runs)} drivers in {time.perf_counter() - t_phase:.1f} s (phase), "
+          f"launches summed K1 {total['pack']} K2 {total['unpack']} K3 {total['lanczos']}; "
+          f"quality_experiment's report: {q['scenes_where_mfsr_beats_bicubic']} scenes where "
+          f"mfsr beats bicubic; {card}")
+    return total, frac
+
+
 # [registration]: the toolkit on a 384 px HR-sized frame at the JAX defaults
 REG = dict(size=384, shift=(0.7, -0.4), border=4, points_per_dim=7, max_recursions=10,
            candidates=49, pm_scale=2, reps=3)
@@ -2070,6 +2328,9 @@ def main() -> None:
     phase_fills(fusion, fusion_dma, lanczos_fused)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flagship_") as tmp:
         flagship = phase_flagship(card, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        examples, frac_warp = phase_examples(lanczos_fused, card, tmp)
+    measured["lanczos"]["serving"][str(FRAC_WARP)] = frac_warp
     before = read_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_registration_") as tmp:
         phase_registration(card, tmp)
@@ -2088,7 +2349,7 @@ def main() -> None:
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
         "launches": (predicted[key] + trained[key] + distributed[key] + viewed[key] + lab[key]
-                     + flagship[key]),
+                     + flagship[key] + examples[key]),
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

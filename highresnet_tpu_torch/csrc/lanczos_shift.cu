@@ -5,7 +5,9 @@
 // together with the two lanczos_kernel calls that the JAX wrapper makes
 // just outside it (lanczos_pallas.py:72-73):
 //
-//   img   : (B, H, W) float32, contiguous
+//   img   : (B, H, W) float32; image b starts img_stride floats after
+//           image b - 1: H * W for a contiguous batch, 0 for one (H, W)
+//           image warped B ways (read once from memory, then from L2)
 //   shift : (B, 2) float32, per-image (dy, dx)
 //   out   : (B, H, W) float32
 //   ky, kx = lanczos_kernel(dy), lanczos_kernel(dx)   (7 taps, Lanczos-3)
@@ -81,7 +83,8 @@ __device__ __forceinline__ float raw_tap(int t, float d) {
 
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
 lanczos_shift_kernel(const float* __restrict__ img, const float* __restrict__ shift,
-                     float* __restrict__ out, int h, int w, int tile, bool vec) {
+                     float* __restrict__ out, int h, int w, int64_t img_stride, int tile,
+                     bool vec) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float raw[2][kTaps];
   __shared__ float taps[2][kTaps];  // [0]: ky (rows), [1]: kx (columns)
@@ -92,7 +95,7 @@ lanczos_shift_kernel(const float* __restrict__ img, const float* __restrict__ sh
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   float* in = smem;                           // (rows + 6) x w
   float* mid = smem + (tile + 2 * kHalf) * w;  // rows x (w + 6)
-  const float* src = img + int64_t(b) * h * w;
+  const float* src = img + int64_t(b) * img_stride;
 
   if (tid < 2 * kTaps) {
     const int axis = tid / kTaps;
@@ -159,21 +162,26 @@ lanczos_shift_kernel(const float* __restrict__ img, const float* __restrict__ sh
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 = ok), or
 // cudaErrorInvalidValue for a shape the kernel does not take. All pointers
-// are device pointers to contiguous float32; the caller allocates out.
+// are device pointers to float32 with contiguous rows; img_stride is the
+// distance between images in floats (0: one image for the whole batch);
+// the caller allocates out, contiguous.
 extern "C" int hrn_lanczos_shift(const void* img, const void* shift, void* out,
-                                 int64_t batch, int64_t h, int64_t w, void* stream) {
-  if (batch <= 0 || batch > 65535 || h < 4 || w < 4 || h * w > 0x7fffffff) {
+                                 int64_t batch, int64_t h, int64_t w, int64_t img_stride,
+                                 void* stream) {
+  if (batch <= 0 || batch > 65535 || h < 4 || w < 4 || h * w > 0x7fffffff ||
+      (img_stride != 0 && img_stride < h * w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int64_t tile = h < kTileRows ? h : kTileRows;
   while (tile > 1 && smem_bytes(tile, w) > kSmemBytes) --tile;
   if (smem_bytes(tile, w) > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0;
+  const bool vec = w % 4 == 0 && img_stride % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(img) % 16 == 0;
   const dim3 grid(static_cast<unsigned>((h + tile - 1) / tile), static_cast<unsigned>(batch));
   lanczos_shift_kernel<<<grid, dim3(kThreadsX, kThreadsY), smem_bytes(tile, w),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), static_cast<const float*>(shift),
-      static_cast<float*>(out), static_cast<int>(h), static_cast<int>(w),
+      static_cast<float*>(out), static_cast<int>(h), static_cast<int>(w), img_stride,
       static_cast<int>(tile), vec);
   return static_cast<int>(cudaGetLastError());
 }

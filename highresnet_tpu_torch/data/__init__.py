@@ -4,8 +4,9 @@
 are copies of ``highresnet_tpu/data/*`` with their imports pointed at this
 package, so the port imports nothing of ``highresnet_tpu``. They import
 numpy, PIL and OpenCV (scipy for ``synth``). Without scikit-learn,
-``train_val_split`` takes its seeded local shuffle, which assigns scenes to
-train/val differently from sklearn's. ``make_synthetic_dataset`` writes a
+``train_val_split`` takes its seeded local shuffle, which assigns every
+scene as sklearn's does at the drivers' scene counts
+(``tests/test_torch_examples.py``). ``make_synthetic_dataset`` writes a
 Proba-V-layout tree of seeded scenes.
 """
 

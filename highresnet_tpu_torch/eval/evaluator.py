@@ -5,8 +5,9 @@ The counterpart of ``highresnet_tpu/eval/evaluator.py``: ``load_data``,
 ``Model`` facade, with the forwards behind them: one checkpoint
 (``_Forward``), a checkpoint ensemble (``_EnsembleForward``) and x4/x8
 dihedral TTA (``_TTAForward``), both PCC-registered to their first output
-by default; ShiftNet-registered scoring; and the single-view bicubic route
-through JAX's cubic resize (``ops/resize.py``). Everything runs on the
+by default, each in eval mode without autograd, returning numpy or, with
+``host=False``, the tensor on the model's device; ShiftNet-registered
+scoring; and the single-view bicubic route through JAX's cubic resize (``ops/resize.py``). Everything runs on the
 model's device: the SR forwards, the PCC alignment (its warp is the Lanczos
 kernel K3 on CUDA), the registered warp (K3) and the shift-search cPSNR.
 
@@ -66,12 +67,17 @@ def load_data(config_file_path: str, val_proportion: float = 0.10, top_k: int = 
     return mk(train_list), mk(val_list), mk(test_dirs), baseline
 
 
-def _device_batch(lrs: np.ndarray, alphas: np.ndarray, device: torch.device):
-    return (torch.from_numpy(np.asarray(lrs, np.float32)).to(device),
-            torch.from_numpy(np.asarray(alphas, np.float32)).to(device))
+def _device_batch(lrs, alphas, device: torch.device):
+    """(lrs, alphas), arrays or tensors, as float32 tensors on ``device``."""
+    return (torch.as_tensor(lrs, dtype=torch.float32, device=device),
+            torch.as_tensor(alphas, dtype=torch.float32, device=device))
 
 
-def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> np.ndarray:
+def _out(sr: torch.Tensor, host: bool):
+    return sr.cpu().numpy() if host else sr
+
+
+def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> torch.Tensor:
     """Mean of (B, H, W) SR outputs, each first PCC-aligned to ``srs[0]``
     with ``register``: one alignment call (one K3 launch on CUDA) over
     the (K-1)·B non-anchor images. K3 takes float32, so each SR is cast."""
@@ -80,19 +86,21 @@ def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> np.nda
         anchor = srs[0]
         aligned, _ = pcc_align_batch(anchor.repeat(len(srs) - 1, 1, 1), torch.cat(srs[1:]))
         srs = [anchor, *aligned.split(anchor.shape[0])]
-    return torch.stack(srs).mean(dim=0).cpu().numpy()
+    return torch.stack(srs).mean(dim=0)
 
 
 class _Forward:
-    """numpy (lrs, alphas) in, numpy SR out; the model runs on its device."""
+    """(lrs, alphas) in, arrays or tensors; the (B, 3H, 3W) SR out, numpy
+    or, with ``host=False``, on ``device``, where the model runs."""
 
-    def __init__(self, model: HRNet, device: torch.device):
+    def __init__(self, model: HRNet, device: torch.device, host: bool = True):
         self.model = model.eval()
         self.device = device
+        self.host = host
 
-    def __call__(self, lrs: np.ndarray, alphas: np.ndarray) -> np.ndarray:
+    def __call__(self, lrs, alphas):
         with torch.inference_mode():
-            return self.model(*_device_batch(lrs, alphas, self.device)).cpu().numpy()
+            return _out(self.model(*_device_batch(lrs, alphas, self.device)), self.host)
 
 
 class _EnsembleForward:
@@ -102,15 +110,18 @@ class _EnsembleForward:
     trained members settle on output frames O(1 px) apart, so a raw mean
     blurs (ENSEMBLE_REPORT.json)."""
 
-    def __init__(self, models: Sequence[HRNet], device: torch.device, register: bool = True):
+    def __init__(self, models: Sequence[HRNet], device: torch.device, register: bool = True,
+                 host: bool = True):
         self.models = [m.eval() for m in models]
         self.device = device
         self.register = register
+        self.host = host
 
-    def __call__(self, lrs: np.ndarray, alphas: np.ndarray) -> np.ndarray:
+    def __call__(self, lrs, alphas):
         with torch.inference_mode():
             x, a = _device_batch(lrs, alphas, self.device)
-            return _register_and_average([m(x, a) for m in self.models], self.register)
+            return _out(_register_and_average([m(x, a) for m in self.models], self.register),
+                        self.host)
 
 
 class _TTAForward:
@@ -122,16 +133,17 @@ class _TTAForward:
     ``transforms=8`` needs square inputs; 4 uses the shape-safe subgroup."""
 
     def __init__(self, model: HRNet, device: torch.device, transforms: int = 8,
-                 register: bool = True):
+                 register: bool = True, host: bool = True):
         if transforms not in (4, 8):
             raise ValueError(f"transforms must be 4 or 8, got {transforms}")
         self.model = model.eval()
         self.device = device
         self.transforms = transforms
         self.register = register
+        self.host = host
         self.elements = SAFE_SUBGROUP if transforms == 4 else tuple(range(8))
 
-    def __call__(self, lrs: np.ndarray, alphas: np.ndarray) -> np.ndarray:
+    def __call__(self, lrs, alphas):
         if self.transforms == 8 and lrs.shape[-2] != lrs.shape[-1]:
             raise ValueError(
                 "x8 TTA requires square inputs (90-degree rotations); "
@@ -140,7 +152,7 @@ class _TTAForward:
         with torch.inference_mode():
             x, a = _device_batch(lrs, alphas, self.device)
             srs = [dihedral_inv(self.model(dihedral_fwd(x, t), a), t) for t in self.elements]
-            return _register_and_average(srs, self.register)
+            return _out(_register_and_average(srs, self.register), self.host)
 
 
 def warn_out_of_range(sr: np.ndarray, name: str = "", tol: float = 0.3) -> bool:

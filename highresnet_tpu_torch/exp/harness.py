@@ -3,8 +3,14 @@
 The counterpart of ``highresnet_tpu/exp/harness.py``: building (or reusing)
 a synthetic dataset, the held-out scenes of the standard split, the scoring
 blocks (the bicubic baseline, a per-scene shift-cPSNR scorer, the SR
-overflow), paired statistics and the report writer. An experiment holds only its
-arms and its protocol.
+overflow), paired statistics and the report writer, plus what the drivers in
+``highresnet_tpu_torch/examples/`` share: the weights of a training run as
+a model (``model_from_params``; the drivers score it through the
+evaluator's ``_Forward`` / ``_TTAForward`` with ``host=False``), a scored
+scene's seeded view draw (``read_scene``), the MFSR / one-view / bicubic
+scoring of held-out scenes (``mfsr_rows``), the
+device label of a report (``device_label``) and the default report path
+(``default_out``). An experiment holds only its arms and its protocol.
 
 Scoring runs on the card unless the caller passes ``device="cpu"``. The
 bicubic baseline is JAX's cubic (``ops/resize.py``), not
@@ -18,6 +24,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import tempfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,7 +32,71 @@ import torch
 
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr
 from highresnet_tpu_torch.ops.resize import resize_cubic
-from highresnet_tpu_torch.runtime import as_tensor, resolve_device
+from highresnet_tpu_torch.runtime import as_tensor, card_line, resolve_device
+
+REPORT_DIR = os.path.join("build", "examples")
+VIEW_SEED = 0  # the seeded draw of a scored scene's views (``read_scene``)
+
+
+def default_out(name: str) -> str:
+    """A driver's default report path, ``build/examples/<name>``: never a
+    checked-in report of the JAX package."""
+    return os.path.join(REPORT_DIR, name)
+
+
+def default_root(name: str) -> str:
+    """A driver's default dataset directory, ``<tmp>/<name>``."""
+    return os.path.join(tempfile.gettempdir(), name)
+
+
+def device_label(device: torch.device | str) -> str:
+    """A report's ``device``: the card's name and power limit on CUDA
+    (``runtime.card_line``), ``"cpu"`` on the CPU."""
+    return card_line() if torch.device(device).type == "cuda" else "cpu"
+
+
+def model_from_params(config, hrnet_params, device: torch.device | str):
+    """HRNet at ``training.compute_dtype`` on ``device`` holding
+    ``hrnet_params`` (``train_and_get_best_model``'s ``params["hrnet"]``)."""
+    from highresnet_tpu_torch.eval.evaluator import build_model
+
+    model = build_model(config, resolve_device(device))
+    model.load_state_dict(hrnet_params)
+    return model.eval()
+
+
+def read_scene(scene_dir: str, views: int):
+    """One scene for scoring: ``views`` views drawn by clearance, as the JAX
+    drivers read it (``top_k=views, beta=50``), from a generator seeded with
+    ``VIEW_SEED``, so a report repeats; the JAX drivers draw unseeded."""
+    from highresnet_tpu_torch.data import read_imageset
+
+    return read_imageset(scene_dir, top_k=views, beta=50.0,
+                         rng=np.random.default_rng(VIEW_SEED))
+
+
+def mfsr_rows(forward, scene_dirs: Sequence[str], views: int,
+              device: torch.device | str = "cuda", log: bool = False) -> List[Dict]:
+    """Per scene (``read_scene``): shift-cPSNR of the SR from ``views`` views
+    (``mfsr``), from the first view alone (``one_view``) and of that view's
+    3x bicubic upsample (``bicubic``)."""
+    from highresnet_tpu_torch.data import collate
+
+    rows = []
+    for d in scene_dirs:
+        s = read_scene(d, views)
+        batch = collate([s], views)
+        sr = forward(batch.lrs, batch.alphas)[0]
+        one = collate([s], 1)
+        sr1 = forward(one.lrs, one.alphas)[0]
+        score = scene_scorer(s, device)
+        rows.append({"scene": s.name, "mfsr": score(sr), "one_view": score(sr1),
+                     "bicubic": score(bicubic_x3(s.lr[0], device))})
+        if log:
+            r = rows[-1]
+            print(f"{s.name:<12} mfsr={r['mfsr']:6.2f} one={r['one_view']:6.2f} "
+                  f"bicubic={r['bicubic']:6.2f}", flush=True)
+    return rows
 
 
 def ensure_dataset(
@@ -154,10 +225,17 @@ def paired_stats(a: Sequence[float], b: Sequence[float]) -> Dict:
     }
 
 
-def emit_report(path: str, report: Dict, slim_drop: Sequence[str] = ()) -> None:
-    """Write the full report JSON; print it with the ``slim_drop`` keys left
-    out (per-scene arrays belong in the file, not the console)."""
+def write_json(path: str, report: Dict) -> None:
+    """Write a report as indented JSON, making its directory if need be."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(report, f, indent=2)
+
+
+def emit_report(path: str, report: Dict, slim_drop: Sequence[str] = ()) -> None:
+    """Write the full report JSON (``write_json``); print it with the
+    ``slim_drop`` keys left out (per-scene arrays belong in the file, not
+    the console)."""
+    write_json(path, report)
     slim = {k: v for k, v in report.items() if k not in slim_drop}
     print(json.dumps(slim, indent=2))

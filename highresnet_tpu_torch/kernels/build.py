@@ -41,8 +41,8 @@ SIGNATURES = {
     "hrn_pack_pairs_dma": (_P, _P, _I64, _I64, _I64, _P),
     # (g, out, batch, views, block_bytes, stream)
     "hrn_unpack_pairs": (_P, _P, _I64, _I64, _I64, _P),
-    # (img, shift, out, batch, h, w, stream)
-    "hrn_lanczos_shift": (_P, _P, _P, _I64, _I64, _I64, _P),
+    # (img, shift, out, batch, h, w, img_stride, stream)
+    "hrn_lanczos_shift": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
 }
 
 _lib = None

@@ -7,8 +7,10 @@ The counterpart of ``highresnet_tpu/ops/lanczos_pallas.py``:
 - ``lanczos_shift_cuda(img, shift)``: the kernel (``csrc/lanczos_shift.cu``),
   one launch that computes each image's taps from its (dy, dx) as
   ``lanczos_kernel`` does and resamples the image; float32 only, H and W at
-  least 4. The JAX wrapper computes the taps just outside its kernel; here
-  they are inside.
+  least 4. ``img`` is a contiguous batch, or one (H, W) image expanded over
+  the batch (``img.expand(B, H, W)``, stride 0), which the kernel reads in
+  place: warping one image many ways moves one image in, not B. The JAX
+  wrapper computes the taps just outside its kernel; here they are inside.
 - ``LanczosShift``: autograd Function. Its forward runs K3 (shift cast to
   the image dtype); its backward is the plain version's VJP at the saved
   (img, shift), as the JAX package's ``_pallas_bwd`` reuses the XLA VJP.
@@ -36,8 +38,14 @@ def lanczos_shift_ref(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return lanczos_shift(img, shift, a=3, n=TAPS)
 
 
+def _broadcast(img: torch.Tensor) -> bool:
+    """One (H, W) image expanded over the batch: stride 0 on B, rows contiguous."""
+    return img.dim() == 3 and img.stride(0) == 0 and img[0].is_contiguous()
+
+
 def lanczos_shift_cuda(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """Launch K3 on the current stream: img (B, H, W), shift (B, 2) -> (B, H, W)."""
+    """Launch K3 on the current stream: img (B, H, W), contiguous or one
+    image expanded over B, shift (B, 2) -> (B, H, W)."""
     global LAUNCHES
     if img.dim() != 3:
         raise ValueError(f"lanczos_shift_cuda expects (B, H, W), got {tuple(img.shape)}")
@@ -49,7 +57,7 @@ def lanczos_shift_cuda(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"lanczos_shift_cuda needs CUDA tensors, got {name} on {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"lanczos_shift_cuda takes float32 only, got {name} {t.dtype}")
-        if not t.is_contiguous():
+        if not (t.is_contiguous() or (t is img and _broadcast(img))):
             raise ValueError(f"lanczos_shift_cuda expects a contiguous {name}")
     if shift.device != img.device:
         raise ValueError(f"img on {img.device} and shift on {shift.device}")
@@ -58,6 +66,7 @@ def lanczos_shift_cuda(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     if w > MAX_WIDTH or b > 65535:
         raise ValueError(f"lanczos_shift_cuda takes W <= {MAX_WIDTH} and B <= 65535, got {b}x{w}")
     out = empty_output(img.shape, img.dtype, img.device)  # the kernel writes every element
+    img_stride = 0 if _broadcast(img) else h * w
 
     from highresnet_tpu_torch.kernels import build
 
@@ -65,7 +74,7 @@ def lanczos_shift_cuda(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.hrn_lanczos_shift(img.data_ptr(), shift.data_ptr(), out.data_ptr(), b, h, w,
-                                   stream)
+                                   img_stride, stream)
     if rc != 0:
         raise RuntimeError(f"hrn_lanczos_shift launch failed: cudaError_t {rc}")
     LAUNCHES += 1
@@ -78,7 +87,8 @@ class LanczosShift(torch.autograd.Function):
         ctx.save_for_backward(img, shift)
         if img.device.type == "cpu":
             return lanczos_shift_ref(img, shift)
-        return lanczos_shift_cuda(img.contiguous(), shift.to(img.dtype).contiguous())
+        img_in = img if _broadcast(img) else img.contiguous()
+        return lanczos_shift_cuda(img_in, shift.to(img.dtype).contiguous())
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

@@ -118,6 +118,21 @@ def test_lanczos_shift_cuda_matches_plain(shape, cuda):
         lanczos_fused.lanczos_shift_cuda(img.detach(), shift.detach()[:, :1].contiguous())
 
 
+@pytest.mark.cuda
+def test_lanczos_shift_cuda_reads_one_image_expanded_over_the_batch(cuda):
+    """An (H, W) image expanded over B (stride 0), as frac_cpsnr warps one
+    SR 625 ways, gives the contiguous copy's output bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    sr = torch.rand((36, 36), generator=gen, device=cuda)
+    shift = torch.rand((25, 2), generator=gen, device=cuda) * 6 - 3
+    img = sr.expand(25, 36, 36)
+    got = lanczos_fused.lanczos_shift_fused(img, shift)
+    assert torch.equal(got, lanczos_fused.lanczos_shift_cuda(img.contiguous(), shift))
+    assert (got - lanczos_fused.lanczos_shift_ref(img, shift)).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="contiguous img"):
+        lanczos_fused.lanczos_shift_cuda(sr.t().expand(25, 36, 36), shift)
+
+
 @pytest.fixture
 def deterministic(cuda):
     before = torch.are_deterministic_algorithms_enabled()

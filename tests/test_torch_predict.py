@@ -23,13 +23,19 @@ REPO = Path(__file__).resolve().parents[1]
 PARITY_DB = 0.01
 # the modules the measured-best recipe added (the warm-start, JAX's cubic
 # resize, the dihedral transforms, the PCC alignment), the registration
-# toolkit's, and data parallelism's with the host tooling
+# toolkit's, data parallelism's with the host tooling, and the quality-experiment
+# drivers
 NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.search",
                "registration.warp", "registration.metrics", "registration.preprocess",
                "registration.session", "registration.app", "models.vgg",
                "cli.export_vgg_weights", "utils.display", "utils.heatmap_canvas",
                "parallel.distributed", "parallel.mesh", "cli.save_clearance",
-               "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun")
+               "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun",
+               *(f"examples.{name}" for name in (
+                   "quality_report", "test_model", "display_dataset", "quality_experiment",
+                   "views_ablation", "register_ablation", "tta_experiment", "flagship_recipe",
+                   "ensemble_experiment", "recipe_report", "flagship_config_report",
+                   "precision_ablation", "pipeline_bench")))
 
 NET = {
     "encoder": {"in_channels": 2, "num_layers": 1, "kernel_size": 3, "channel_size": 16},

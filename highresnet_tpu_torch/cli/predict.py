@@ -7,9 +7,8 @@ Usage:
         [--submission out_dir] [--splits val test]
 
 The flags of ``highresnet_tpu.cli.predict`` plus ``--device``. A JAX run
-directory (Orbax ``best/``) gets its ``HRNet.pth`` from
-``scripts/export_torch_weights.py``; ``--registered`` also needs the run's
-``best/ShiftNet.pth``, which only the port's ``cli.train`` writes.
+directory (Orbax ``best/``) gets its ``HRNet.pth`` and, for
+``--registered``, its ``ShiftNet.pth`` from ``scripts/export_torch_weights.py``.
 """
 
 from __future__ import annotations

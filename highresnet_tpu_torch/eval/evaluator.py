@@ -350,7 +350,8 @@ class Model:
         if path is None:
             raise FileNotFoundError(
                 f"{checkpoint} holds no {SHIFTNET_FILE} (nor best/{SHIFTNET_FILE}); registered "
-                "scoring takes a run directory of the port's cli.train"
+                "scoring takes a run directory of the port's cli.train, or a JAX run directory "
+                "after scripts/export_torch_weights.py"
             )
         self.load_checkpoint(checkpoint)
         shiftnet = ShiftNet(register_size=self._training.get("register_size", 128))

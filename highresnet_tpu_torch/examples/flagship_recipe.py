@@ -19,7 +19,13 @@ headline is full+TTA minus plain — what a user gains by switching the
 reference's training defaults to this framework's recipe.
 
     python -m highresnet_tpu_torch.examples.flagship_recipe [--epochs 300] \
-        [--out build/examples/FLAGSHIP_RECIPE.json] [--device cuda]
+        [--train-seed N] [--out build/examples/FLAGSHIP_RECIPE.json] [--device cuda]
+
+``--seed`` makes the train and test sets; ``--train-seed`` sets only
+``training.seed`` (weights, loader sampling, warm-start draws), which
+otherwise stays at the config's 123. Given, it is recorded under
+``protocol.train_seed`` and names the arms' run dirs, so runs at several
+training seeds share one dataset without resuming each other.
 
 Relaunch-safe: stable per-arm run dirs and periodic full-state checkpoints.
 """
@@ -81,7 +87,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--patch", type=int, default=32)
     ap.add_argument("--lr", type=float, default=7e-4)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0, help="the datasets' generator seed")
+    ap.add_argument("--train-seed", type=int, default=None,
+                    help="training.seed alone (default: the config's)")
     ap.add_argument("--val-proportion", type=float, default=0.1)
     ap.add_argument("--early-stop-patience", type=int, default=0)
     ap.add_argument("--regen", action="store_true")
@@ -135,6 +143,10 @@ def main(argv=None):
         "early_stop_patience": args.early_stop_patience,
         "data_parallel": False,
     }
+    given, ckpt_suffix = {}, ""  # protocol keys and run-dir suffix of --train-seed
+    if args.train_seed is not None:
+        given, ckpt_suffix = {"train_seed": args.train_seed}, f"_train_seed{args.train_seed}"
+        shared["seed"] = args.train_seed
 
     results = {}
     for arm, overrides in ARMS.items():
@@ -142,7 +154,7 @@ def main(argv=None):
             overrides={
                 "paths": {
                     "prefix": args.root,
-                    "checkpoint_dir": os.path.join(args.root, f"ckpt_{arm}"),
+                    "checkpoint_dir": os.path.join(args.root, f"ckpt_{arm}{ckpt_suffix}"),
                     "tb_log_file_dir": "",
                 },
                 "training": {**shared, **overrides},
@@ -150,7 +162,8 @@ def main(argv=None):
         )
         t0 = time.time()
         out = train_and_get_best_model(
-            config, run_dir=os.path.join(args.root, f"ckpt_{arm}", "run"), device=device
+            config, run_dir=os.path.join(args.root, f"ckpt_{arm}{ckpt_suffix}", "run"),
+            device=device,
         )
         train_s = time.time() - t0
         print(f"[{arm}] trained in {train_s:.0f}s; best={out['best_score']:.3f}", flush=True)
@@ -189,6 +202,7 @@ def main(argv=None):
             "batch": args.batch,
             "lr": args.lr,
             "seed": args.seed,
+            **given,
             "device": harness.device_label(device),
         },
         "arms": results,

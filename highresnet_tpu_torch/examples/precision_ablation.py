@@ -18,7 +18,8 @@ drawn from this run's numbers (``conclusion_flags``).
     python -m highresnet_tpu_torch.examples.precision_ablation \
         [--out build/examples/PRECISION_ABLATION.json] [--device cuda]
 
-The weights are HRNet's default init from a torch.Generator seeded with
+The weights are HRNet's init (flax's lecun-normal kernels and zero biases,
+as the JAX package draws them) from a torch.Generator seeded with
 ``INIT_SEED``; production channel widths, tiny spatial shapes.
 """
 

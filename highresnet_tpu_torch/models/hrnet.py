@@ -9,11 +9,12 @@ Submodule names equal the reference ``HRNet.pth`` state-dict keys
 ``decode.deconv.*``, ``decode.final``), so the JAX package's
 ``hrnet_params_from_torch`` reads this module's ``state_dict()`` unchanged.
 
-Every parameter is drawn from an explicit ``torch.Generator`` on the CPU
-(PyTorch's default Conv2d / ConvTranspose2d init), then moved to the device,
-so one seed gives the same weights on every device. Parameters stay float32
-whatever the compute dtype and are cast at use (``models/layers.py``), as
-in the JAX package.
+Every parameter is drawn as the JAX package's flax modules draw it: each
+kernel from ``lecun_normal`` (``models/layers.py::lecun_normal_``), every
+bias zero, PReLU at 0.25. The draws come from an explicit ``torch.Generator``
+on the CPU in module order, then move to the device, so one seed gives the
+same weights on every device. Parameters stay float32 whatever the compute
+dtype and are cast at use (``models/layers.py``), as in the JAX package.
 
 ``HRNet.shard_views(group)`` makes train mode split the views over the M
 ranks of a view group (the 2-D layout, ``parallel/mesh.py``), as JAX's step
@@ -38,7 +39,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from highresnet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, PReLU
+from highresnet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, PReLU, lecun_normal_
 from highresnet_tpu_torch.ops.fusion import pack_pairs, pack_pairs_ref
 from highresnet_tpu_torch.parallel.distributed import gather_views, process_count, process_index
 
@@ -221,13 +222,15 @@ class HRNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """PyTorch's default conv init, drawn from ``generator`` in module order."""
+        """flax's init, drawn from ``generator`` in module order: lecun-normal
+        kernels with JAX's fan_in (a Conv2d's in·k·k; the deconv's from its
+        JAX shape (s, s, C_in, C_out), so C_in·s·s, where torch's fan-in
+        helper would read C_out from the (C_in, C_out, s, s) weight), zero
+        biases, PReLU at 0.25."""
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
-                bound = 1.0 / math.sqrt(fan_in)
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+                lecun_normal_(m.weight, m.in_channels * math.prod(m.kernel_size), generator)
+                m.bias.zero_()
             elif isinstance(m, nn.PReLU):
                 m.weight.fill_(0.25)
 

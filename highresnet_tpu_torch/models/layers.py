@@ -6,15 +6,33 @@ and decoder cast their f32 parameters at the call). These subclasses do the
 same, so a bf16 body trains f32 master weights and Adam updates f32, as in
 JAX. Their state-dict keys are those of the torch base classes. On f32
 inputs ``.to`` returns the parameter itself: no copy, no extra graph node.
+
+``lecun_normal_`` draws a kernel as flax's default ``lecun_normal`` does,
+the one initialiser of the port's HRNet, ShiftNet and seeded VGG.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from highresnet_tpu_torch.parallel.distributed import all_reduce_sum
+
+# the std of a unit normal truncated at +-2 (flax's variance_scaling divides by it)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``weight`` in place from flax's ``lecun_normal``: a normal of std
+    sigma = sqrt(1 / fan_in) / 0.8796 truncated at +-2 sigma, so the drawn
+    values have variance 1 / fan_in. The caller gives ``fan_in`` in JAX's
+    terms (a deconv's is in_channels * k * k, not torch's dim-1 count)."""
+    sigma = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=sigma, a=-2 * sigma, b=2 * sigma,
+                                 generator=generator)
 
 
 class Conv2d(nn.Conv2d):

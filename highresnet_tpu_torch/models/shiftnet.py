@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from highresnet_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear
+from highresnet_tpu_torch.models.layers import BatchNorm2d, Conv2d, Linear, lecun_normal_
 from highresnet_tpu_torch.ops.lanczos_fused import lanczos_shift_fused
 from highresnet_tpu_torch.parallel.distributed import process_count, process_index
 
@@ -83,14 +83,17 @@ class ShiftNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """PyTorch's default init drawn from ``generator`` in module order;
-        BatchNorm at (1, 0) with fresh running statistics; ``fc2`` zero."""
+        """flax's init, drawn from ``generator`` in module order: lecun-normal
+        kernels (fan_in in·3·3 for the convs, in_features for ``fc1``), zero
+        biases; BatchNorm at (1, 0) with fresh running statistics; ``fc2``
+        zero."""
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
-                if m.bias is not None:
-                    bound = 1.0 / math.sqrt(nn.init._calculate_fan_in_and_fan_out(m.weight)[0])
-                    nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m.weight, m.in_channels * math.prod(m.kernel_size), generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear) and m is not self.fc2:
+                lecun_normal_(m.weight, m.in_features, generator)
+                m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
         self.fc2.weight.zero_()

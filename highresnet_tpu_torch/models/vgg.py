@@ -19,13 +19,13 @@ same weights from one seed.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from highresnet_tpu_torch.models.layers import lecun_normal_
 from highresnet_tpu_torch.runtime import as_tensor, resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -127,9 +127,7 @@ def seeded_state(seed: int) -> Dict[str, torch.Tensor]:
     g = torch.Generator().manual_seed(seed)
     state = {}
     for index, in_ch, out_ch in CONV_SPECS:
-        std = math.sqrt(1.0 / (in_ch * 9)) / 0.87962566103423978
-        weight = torch.empty(out_ch, in_ch, 3, 3)
-        nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=g)
+        weight = lecun_normal_(torch.empty(out_ch, in_ch, 3, 3), in_ch * 9, g)
         state[f"features.{index}.weight"] = weight
         state[f"features.{index}.bias"] = torch.zeros(out_ch)
     return state

@@ -108,8 +108,8 @@ def load_init_params(state: TrainState, run_dir: str) -> None:
     if missing:
         raise FileNotFoundError(
             f"training.init_params_from={run_dir!r}: {best} holds no {' or '.join(missing)}. "
-            "It takes a run directory of the port's cli.train; a JAX run directory (Orbax "
-            "best/) has no such files (scripts/export_torch_weights.py writes HRNet.pth only)"
+            "It takes a run directory of the port's cli.train, or a JAX run directory (Orbax "
+            "best/) after scripts/export_torch_weights.py has written both files into best/"
         )
     restored = CheckpointManager(run_dir).load_best()
     state.hrnet.load_state_dict(restored["params"]["hrnet"])

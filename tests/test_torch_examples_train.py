@@ -8,7 +8,8 @@ drivers' default network, narrowed through ``load_config``), 4 views of
   (``RECIPE_FT_CTL.json``; ``QUALITY_REPORT.json`` predates the selection
   block); ``views_ablation`` then takes its newest run dir by default;
 - ``flagship_recipe`` runs both arms (the 400-step warm-start included) on a
-  fresh test set from seed + 7777 and writes FLAGSHIP_RECIPE.json's schema;
+  fresh test set from seed + 7777 and writes FLAGSHIP_RECIPE.json's schema,
+  at its defaults and under ``--train-seed``;
 - ``register_ablation`` appends a protocol per run to one report;
 - ``ensemble_experiment`` trains two members and scores them with x4 TTA on
   a fresh test set.
@@ -87,16 +88,35 @@ def test_quality_experiment_repeats_and_keeps_the_schema(tmp_path):
     assert abs(sweep["by_views"][-1]["mean_shift_cpsnr"] - want) <= 1e-4
 
 
-def test_flagship_recipe_runs_both_arms(tmp_path):
+@pytest.mark.parametrize("given", [{}, {"train_seed": 5}], ids=["default", "train_seed"])
+def test_flagship_recipe_runs_both_arms(tmp_path, monkeypatch, given):
+    """At the defaults the report keeps FLAGSHIP_RECIPE.json's keys exactly;
+    ``--train-seed`` sets training.seed alone (the datasets stay those of
+    ``--seed``), is a ``protocol`` key after ``seed`` and names the arms'
+    run dirs."""
     from highresnet_tpu_torch.examples import flagship_recipe
+    from highresnet_tpu_torch.train import loop
 
+    seen = []
+    real = loop.train_and_get_best_model
+    monkeypatch.setattr(loop, "train_and_get_best_model", lambda config, **kw: (
+        seen.append(config["training"]["seed"]), real(config, **kw))[1])
+    extra = [f"--{k.replace('_', '-')}={v}" for k, v in given.items()]
     report = flagship_recipe.main([
         "--root", str(tmp_path / "train"), "--test-root", str(tmp_path / "test"),
         "--scenes-per-channel", "4", "--test-scenes-per-channel", "2", "--epochs", "1",
         "--views", "4", "--lr-size", "16", "--patch", "8", "--batch", "4", "--device", "cpu",
-        "--out", str(tmp_path / "f.json")])
+        "--out", str(tmp_path / "f.json"), *extra])
     ref = _keys("FLAGSHIP_RECIPE.json")
-    assert list(report) == list(ref) and list(report["protocol"]) == list(ref["protocol"])
+    want_protocol = list(ref["protocol"])
+    at = want_protocol.index("seed") + 1
+    want_protocol[at:at] = list(given)
+    assert all(report["protocol"][k] == v for k, v in given.items())
+    assert seen == [given.get("train_seed", 123)] * 2
+    suffix = "".join(f"_{k}{v}" for k, v in given.items())
+    assert {p.name for p in (tmp_path / "train").glob("ckpt_*")} == \
+        {f"ckpt_plain{suffix}", f"ckpt_full{suffix}"}
+    assert list(report) == list(ref) and list(report["protocol"]) == want_protocol
     assert list(report["comparisons"]) == list(ref["comparisons"])
     assert set(report["arms"]) == {"plain", "full"}
     for arm in report["arms"].values():

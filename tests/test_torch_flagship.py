@@ -6,7 +6,9 @@
   ``warp_int_range`` 0 and 4; an end-to-end warm-start that recovers a
   held-out offset (the twin of ``tests/test_train.py``'s).
 - ``training.init_params_from``: the donor's ``best/`` exactly, fresh Adam
-  moments, the EMA at the loaded point; ``training.epoch_cache_variants``:
+  moments, the EMA at the loaded point; a JAX run dir after
+  ``scripts/export_torch_weights.py``, every tensor bit for bit;
+  ``training.epoch_cache_variants``:
   the cache built under the JAX package's key, then replayed.
 - The arc: ``configs/flagship.json``, ``flagship_ft_rp.json`` and
   ``flagship_ft_varl.json`` chained through ``--run-dir`` in the port's
@@ -42,6 +44,7 @@ from highresnet_tpu_torch.models import ShiftNet
 from highresnet_tpu_torch.ops.lanczos import lanczos_shift
 from highresnet_tpu_torch.train import pretrain
 from highresnet_tpu_torch.train.state import make_optimizer
+from test_torch_train import jax_float64
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RS = 32
@@ -66,6 +69,15 @@ TINY = {
     },
     "paths": {"prefix": "", "checkpoint_dir": "", "tb_log_file_dir": ""},
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads: the suite runs files side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -120,10 +132,16 @@ class _AddGrad(torch.optim.Optimizer):
 
 
 def _jax_warmstart(model, pool, idx, d, max_shift, warp_int_range, monkeypatch, capture):
-    """JAX's pretrain_shiftnet for one step from the port model's weights, its
-    draws replaced by idx and d (sigma 1: d = 1 * normal), dropout off; with
-    ``capture`` optax.adam is replaced by an update that is the gradient."""
-    params, stats = shiftnet_from_torch(model.state_dict())
+    """JAX's pretrain_shiftnet in float64 (``test_torch_train.jax_float64``:
+    its pairs warped from the pool in float64 too) for one step from the
+    port model's weights, its draws replaced by idx and d (sigma 1: d = 1 *
+    normal), dropout off; with ``capture`` optax.adam is replaced by an
+    update that is the gradient. At the port's init a pair warped in f32 by
+    either package's warp sits an ulp from the other's, and ReLU inputs
+    within rounding of zero carry that into the conv gradients: JAX's own f32
+    step lies further from this float64 one than the port's f32 step does."""
+    params, stats = shiftnet_from_torch(
+        {k: v.double() if v.is_floating_point() else v for k, v in model.state_dict().items()})
     monkeypatch.setattr(jax.random, "randint", lambda *a, **k: jnp.asarray(idx))
     monkeypatch.setattr(jax.random, "normal", lambda *a, **k: jnp.asarray(d))
     monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
@@ -131,9 +149,11 @@ def _jax_warmstart(model, pool, idx, d, max_shift, warp_int_range, monkeypatch, 
         monkeypatch.setattr(jax_pretrain.optax, "adam", lambda lr: optax.GradientTransformation(
             lambda p: (), lambda u, s, p=None: (u, s)))
     try:
-        return jax_pretrain.pretrain_shiftnet(
-            JaxShiftNet(), params, stats, pool, jax.random.PRNGKey(0), steps=1, sigma=1.0,
-            max_shift=max_shift, lr=LR, batch_size=len(idx), warp_int_range=warp_int_range)
+        with jax_float64(monkeypatch):
+            return jax.device_get(jax_pretrain.pretrain_shiftnet(
+                JaxShiftNet(dtype=jnp.float64), params, stats, pool, jax.random.PRNGKey(0),
+                steps=1, sigma=1.0, max_shift=max_shift, lr=LR, batch_size=len(idx),
+                warp_int_range=warp_int_range))
     finally:
         monkeypatch.undo()
 
@@ -256,6 +276,54 @@ def test_init_params_from_finetunes_saved_best(train_root, tmp_path, capsys):
     with pytest.raises(FileNotFoundError, match="export_torch_weights"):
         train_and_get_best_model(_tiny(train_root, tmp_path, init_params_from=str(tmp_path)),
                                  run_dir=str(tmp_path / "bad"), device="cpu")
+
+
+def test_init_params_from_loads_an_exported_jax_run(train_root, tmp_path):
+    """A JAX run dir (Orbax best/ from the JAX package's CheckpointManager,
+    flax-drawn weights, a random fc2, BN statistics away from (0, 1)) after
+    scripts/export_torch_weights.py: init_params_from loads every parameter
+    and BatchNorm statistic bit for bit, and the EMA starts there."""
+    import importlib.util
+
+    from highresnet_tpu.models import HRNet as JaxHRNet
+    from highresnet_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
+    from highresnet_tpu_torch.models import hrnet_state_dict_from_flax, shiftnet_state_dict_from_flax
+    from highresnet_tpu_torch.train.setup import build_models_and_steps
+
+    rng = np.random.default_rng(4)
+    hrnet = jax.device_get(JaxHRNet(config=TINY["network"]).init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 4, 16, 16)), jnp.ones((1, 4)))["params"])
+    variables = JaxShiftNet().init(jax.random.PRNGKey(3), jnp.zeros((1, RS, RS, 2)), train=False)
+    shiftnet = jax.device_get(variables["params"])
+    shiftnet["fc2"]["kernel"] = rng.normal(0, 0.05, (1024, 2)).astype(np.float32)
+    stats = {name: {"mean": rng.normal(0, 0.1, s["mean"].shape).astype(np.float32),
+                    "var": rng.uniform(0.5, 2.0, s["var"].shape).astype(np.float32)}
+             for name, s in variables["batch_stats"].items()}
+    run_dir = str(tmp_path / "jax_run")
+    ckpt = JaxCheckpointManager(run_dir)
+    ckpt.save_best({"hrnet": hrnet, "shiftnet": shiftnet}, stats, score=-1.0)
+    ckpt.wait()
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps(_tiny(train_root, tmp_path)))
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_weights", os.path.join(REPO, "scripts", "export_torch_weights.py"))
+    export = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(export)
+    export.main(["--config", str(config), "--run-dir", run_dir])
+
+    cfg = _tiny(train_root, tmp_path, init_params_from=run_dir, ema_decay=0.99)
+    state = build_models_and_steps(cfg, torch.device("cpu"), seed=123,
+                                   train_list=discover_scenes(f"{train_root}/train")).state
+    want = {"hrnet": hrnet_state_dict_from_flax(hrnet),
+            "shiftnet": shiftnet_state_dict_from_flax(shiftnet, stats)}
+    for name in ("hrnet", "shiftnet"):
+        got = getattr(state, name).state_dict()
+        keys = [k for k in got if not k.endswith("num_batches_tracked")]
+        assert sorted(keys) == sorted(k for k in want[name] if not k.endswith("num_batches_tracked"))
+        for k in keys:
+            assert torch.equal(got[k], want[name][k]), (name, k)
+        for k, p in getattr(state, name).named_parameters():
+            assert torch.equal(state.ema[name][k], p), (name, k)
 
 
 def test_epoch_cache_in_train_loop(train_root, tmp_path, monkeypatch):

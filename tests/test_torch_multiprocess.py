@@ -4,8 +4,12 @@ The twin of tests/test_multihost.py on its config (deterministic views, no
 patches, no shuffling, eval_batch_size 2 so the sharded eval runs): two ranks, each on its shard of the train list at
 half the global batch, against one process that sees the same scenes in
 the ranks' interleaved order (the same global batches row for row):
-per-epoch train loss and val score within rtol 1e-5; best score and final
-weights equal on both ranks; only rank 0 wrote the run directory; and a
+per-epoch train loss and val score within the larger of rtol 1e-5 and
+``NOISE_FACTOR`` 4 times the noise floor measured in the same call (hazard
+H9): the one-process run in f32 against the same run in float64 (the
+registered epochs carry f32 rounding well past 1e-5 from the port's init,
+and the ranks round their gradient sums in another order), the ranks held
+to the float64 run; best score and final weights equal on both ranks; only rank 0 wrote the run directory; and a
 2-epoch run resumed to 4 ends bit-identical to an uninterrupted 4-epoch
 two-rank run. Children run under 120 s each (``_torch_ranks.launch``).
 """
@@ -19,8 +23,10 @@ import pytest
 import _torch_ranks as tr
 from highresnet_tpu_torch.data.pipeline import shard_for_hosts
 from highresnet_tpu_torch.data.synth import make_synthetic_dataset
+from test_torch_train import port_float64, state_to_float64
 
 LOOP_RTOL = 1e-5
+NOISE_FACTOR = 4
 
 CONFIG = {
     "network": {
@@ -63,7 +69,7 @@ def _job(root, run_dir, epochs, tag):
 
 
 def test_two_processes_match_one_and_resume_bit_identically(root, tmp_path, monkeypatch):
-    from highresnet_tpu_torch.train import loop
+    from highresnet_tpu_torch.train import loop, setup
 
     # the one-process oracle first, alone: the train scenes in the two
     # ranks' global-batch order
@@ -80,6 +86,11 @@ def test_two_processes_match_one_and_resume_bit_identically(root, tmp_path, monk
 
     monkeypatch.setattr(loop, "train_val_split", interleaved)
     one = tr.run_loop(_config(root, 2), str(tmp_path / "one"))
+    real_create = setup.create_train_state
+    monkeypatch.setattr(setup, "create_train_state",
+                        lambda *a, **k: state_to_float64(real_create(*a, **k)))
+    port_float64(monkeypatch)
+    exact = tr.run_loop(_config(root, 2), str(tmp_path / "one64"))
     monkeypatch.undo()
 
     # the 2-epoch run and the uninterrupted 4-epoch run side by side, then
@@ -91,9 +102,11 @@ def test_two_processes_match_one_and_resume_bit_identically(root, tmp_path, monk
 
     assert one["world"] == 1 and [r["world"] for r in pair] == [2, 2]
     assert len(one["losses"]) == 2 and one["losses"][0] != 0.0
-    for r in pair:
-        np.testing.assert_allclose(r["losses"], one["losses"], rtol=LOOP_RTOL)
-        np.testing.assert_allclose(r["vals"], one["vals"], rtol=LOOP_RTOL)
+    for q in ("losses", "vals"):
+        want = np.asarray(exact[q])
+        tol = np.maximum(LOOP_RTOL * np.abs(want), NOISE_FACTOR * np.abs(np.asarray(one[q]) - want))
+        for r in pair:
+            assert np.all(np.abs(np.asarray(r[q]) - want) <= tol), (q, r[q], one[q], exact[q])
     # the ranks agree bit for bit, and rank 0 alone wrote
     for runs in (pair, resumed, straight):
         a, b = runs

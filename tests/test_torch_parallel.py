@@ -40,6 +40,7 @@ from highresnet_tpu_torch.models.convert import (
 from highresnet_tpu_torch.parallel import distributed, mesh
 from highresnet_tpu_torch.train.state import create_train_state
 from highresnet_tpu_torch.train.step import build_train_step
+from test_torch_train import jax_float64
 
 BN_TOL = 1e-6
 LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-5
@@ -126,11 +127,13 @@ def _to_port(params, batch_stats) -> dict:
 
 
 def _jax_step(inp: dict, monkeypatch, capture: bool = False, jax_mesh=None):
-    """The JAX step on ``inp``'s config (dropout the identity) from the port's
-    weights, on one device or, with ``jax_mesh``, on JAX's 2-D data x view layout
-    (tests/test_parallel.py's specs): real Adam, or with ``capture`` an
-    optimizer whose state becomes the gradient. Returns (loss, post-step
-    params or gradients, port names)."""
+    """The JAX step in float64 (``test_torch_train.jax_float64``: at the
+    port's init JAX's own f32 rounding of some gradients leaves the exact
+    step by more than the limits below) on ``inp``'s config (dropout the
+    identity) from the port's weights, on one device or, with ``jax_mesh``,
+    on JAX's 2-D data x view layout (tests/test_parallel.py's specs): real
+    Adam, or with ``capture`` an optimizer whose state becomes the gradient.
+    Returns (loss, post-step params or gradients, port names)."""
     from jax.sharding import PartitionSpec as P
 
     from highresnet_tpu.parallel.mesh import put_with_specs
@@ -144,19 +147,24 @@ def _jax_step(inp: dict, monkeypatch, capture: bool = False, jax_mesh=None):
             lambda u, s, p=None: (jax.tree.map(jnp.zeros_like, u), u),
         )
         monkeypatch.setattr(jax_step, "make_optimizer", lambda *a, **k: tx)
-    sn_params, stats = shiftnet_from_torch(inp["shiftnet"])
-    params = {"hrnet": hrnet_params_from_torch(inp["hrnet"], num_res_layers=1),
+    wide = lambda sd: {k: v.double() if v.is_floating_point() else v for k, v in sd.items()}
+    sn_params, stats = shiftnet_from_torch(wide(inp["shiftnet"]))
+    params = {"hrnet": hrnet_params_from_torch(wide(inp["hrnet"]), num_res_layers=1),
               "shiftnet": sn_params}
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                          opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
-    step = jax_step.build_train_step(JaxHRNet(config=config["network"]), JaxShiftNet(), config,
-                                     mesh=jax_mesh, shard_views=jax_mesh is not None)
-    batch = inp["batch"]
-    if jax_mesh is not None:
-        batch = put_with_specs(jax_mesh, batch, (P("data", "view", None, None), P("data", "view"),
-                                             P("data", None, None), P("data", None, None)))
-    new, metrics = step(state, *batch)
-    new = jax.device_get(new)
+    with jax_float64(monkeypatch):
+        state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                              opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
+        step = jax_step.build_train_step(
+            JaxHRNet(config=config["network"], dtype=jnp.float64),
+            JaxShiftNet(dtype=jnp.float64), config, mesh=jax_mesh,
+            shard_views=jax_mesh is not None)
+        batch = tuple(np.asarray(a, np.float64) for a in inp["batch"])
+        if jax_mesh is not None:
+            batch = put_with_specs(jax_mesh, batch, (P("data", "view", None, None),
+                                                     P("data", "view"), P("data", None, None),
+                                                     P("data", None, None)))
+        new, metrics = step(state, *batch)
+        new, metrics = jax.device_get((new, metrics))
     monkeypatch.undo()
     tree = new.opt_state if capture else new.params
     return float(metrics["loss"]), _to_port(tree, new.batch_stats)

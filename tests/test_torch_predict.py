@@ -57,7 +57,7 @@ def _load_export_script():
 
 
 def _export(served):
-    """scripts/export_torch_weights.py: best/ -> <run_dir>/HRNet.pth."""
+    """scripts/export_torch_weights.py: best/ (Orbax) -> best/HRNet.pth."""
     cfg_path, run_dir = served
     return _load_export_script().main(["--config", cfg_path, "--run-dir", run_dir])
 
@@ -110,7 +110,7 @@ def test_predict_cli_matches_jax_per_scene(served, monkeypatch, tmp_path):
     jax_scores = _captured_scores(monkeypatch, jax_evaluator)
     jax_predict(argv)
 
-    assert _export(served) == str(Path(run_dir) / "HRNet.pth")
+    assert _export(served) == str(Path(run_dir) / "best" / "HRNet.pth")
 
     port_scores = _captured_scores(monkeypatch, port_evaluator)
     table = port_predict([*argv, "--device", "cpu", "--submission", str(tmp_path / "sub")])

@@ -1,9 +1,14 @@
 """The port's serving extras against the JAX package on the same weights and
 scenes: JAX's cubic resize and the single-view bicubic route, the dihedral
 transforms, phase cross-correlation and PCC alignment, x4/x8 TTA and the
-two-member ensemble, and ShiftNet-registered scoring. Small sizes: a
+two-member ensemble, and ShiftNet-registered scoring, on a port run dir and
+on a JAX run dir exported by ``scripts/export_torch_weights.py``. Small sizes: a
 one-residual-layer HRNet with 16 channels, 4 views of 16 px (SR 48 px),
 ShiftNet at register size 32."""
+
+import importlib.util
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -280,3 +285,64 @@ def test_load_checkpoint_with_shiftnet_honours_compute_dtype(joint_run, tmp_path
         evaluator.Model(_config(), device="cpu")(None, registered=True)
     with pytest.raises(FileNotFoundError, match="ShiftNet.pth"):
         model.load_checkpoint_with_shiftnet(str(tmp_path))
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """A JAX run dir whose Orbax best/ holds flax-drawn HRNet and ShiftNet
+    weights (a random fc2 and BN statistics away from (0, 1), so the
+    registered warp moves the SR), saved by the JAX package's
+    CheckpointManager, and its config file."""
+    from highresnet_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
+
+    tmp = tmp_path_factory.mktemp("jax_run")
+    rng = np.random.default_rng(9)
+    hrnet = JaxHRNet(config=NET).init(jax.random.PRNGKey(5), jnp.zeros((1, L, 16, 16)),
+                                      jnp.ones((1, L)))["params"]
+    variables = JaxShiftNet().init(jax.random.PRNGKey(6), jnp.zeros((1, RS, RS, 2)), train=False)
+    shiftnet = jax.device_get(variables["params"])
+    shiftnet["fc2"]["kernel"] = rng.normal(0, 0.05, (1024, 2)).astype(np.float32)
+    stats = {name: {"mean": rng.normal(0, 0.1, s["mean"].shape).astype(np.float32),
+                    "var": rng.uniform(0.5, 2.0, s["var"].shape).astype(np.float32)}
+             for name, s in variables["batch_stats"].items()}
+    run_dir = str(tmp / "run")
+    ckpt = JaxCheckpointManager(run_dir)
+    ckpt.save_best({"hrnet": hrnet, "shiftnet": shiftnet}, stats, score=-1.0)
+    ckpt.wait()
+    config = tmp / "config.json"
+    config.write_text(json.dumps(_config()))
+    return str(config), run_dir
+
+
+def _export(config: str, run_dir: str) -> str:
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_weights", Path(__file__).resolve().parents[1] / "scripts"
+        / "export_torch_weights.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(["--config", config, "--run-dir", run_dir])
+
+
+def test_exported_jax_run_scores_registered_as_jax(scenes, jax_run):
+    """scripts/export_torch_weights.py writes HRNet.pth and ShiftNet.pth to
+    the run dir's best/; the port's registered scoring on the exported
+    run agrees with JAX's on its Orbax checkpoint within 0.01 dB a scene."""
+    from highresnet_tpu.config import load_config as jax_load_config
+
+    config, run_dir = jax_run
+    assert _export(config, run_dir) == str(Path(run_dir) / "best" / "HRNet.pth")
+    assert {"HRNet.pth", "ShiftNet.pth"} <= {p.name for p in (Path(run_dir) / "best").iterdir()}
+    model = evaluator.Model(_config(), device="cpu")
+    model.load_checkpoint_with_shiftnet(run_dir)
+    jax_model = jax_evaluator.Model(jax_load_config(config))
+    jax_model.load_checkpoint_with_shiftnet(run_dir)
+    moved = 0.0
+    for b in scenes:
+        _, score = model(b, registered=True)
+        _, plain = model(b)
+        _, want = jax_evaluator.get_sr_and_score(b, jax_model.forward, min_l=L,
+                                                 registration=jax_model.registration,
+                                                 register_size=RS)
+        assert abs(score - want) <= PARITY_DB, (b.names, score, want)
+        moved = max(moved, abs(score - plain))
+    assert moved > 1e-4  # the registered warp changed a score

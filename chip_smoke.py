@@ -134,6 +134,15 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      ``compute_and_apply_shift`` of each method, per grid level of NCC and
      PL, and ``features_batched`` over 49 x 384 px with its peak memory.
      No launch of K1-K4 (asserted).
+ 14. [bench] ``highresnet_tpu_torch.bench.main`` in-process, every row of the
+     bench at its full shape (the headline, bf16 headline, the f32 and bf16
+     train steps at batch 32 x 32 views x 64 px, the eval step, 32-view f32,
+     batch-32 bf16, batch-1 latency) with a window of two calls and one
+     repeat: every row present, finite and positive, none still
+     ``timing_suspect``, the bench's four-key line, the bf16 train step's
+     parameters, gradients and Adam moments f32, each row's K1/K2 launches
+     as its calls imply and no K3 or K4, the phase within 150 s; each row
+     printed beside the card line.
 Each bit-exact or tolerance check of K1-K4 reads an output that the kernel
 wrote into a block just filled with NaN and freed (``poison``), so a byte
 the kernel leaves unwritten shows. Kernel times: ``ms`` is device time per
@@ -142,7 +151,7 @@ events (median of 10 replays); ``call_ms`` is one call between two events,
 the wrapper's host part included (median of 20), the series of the earlier
 runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
 Then one JSON line with the kernels (``launches`` sums the predict, train,
-dist (both ranks), view (every rank), lab, flagship and examples runs,
+dist (both ranks), view (every rank), lab, flagship, examples and bench runs,
 the fused warm-start included; K3's entry also holds its serving shapes and
 frac_cpsnr's;
 ``bound_ms`` is the least time the card could take for the timed call,
@@ -2354,6 +2363,94 @@ def phase_registration(card: str, tmp: str) -> None:
     registration_timings(pairs, extractors["cuda"], card)
 
 
+# [bench]: highresnet_tpu_torch.bench's main in-process, every row at its full
+# shape, BENCH_ITERS calls a window and one window a row (the bench's own
+# windows and three repeats run in its own call: python -m
+# highresnet_tpu_torch.bench)
+BENCH_ITERS, BENCH_REPEATS = 2, 1
+BENCH_PHASE_LIMIT_S = 150.0
+BENCH_NUMBERS = ("first_call_s", "step_time_s", "scenes_per_sec", "achieved_tflops_per_s",
+                 "utilization", "peak_memory_gb")
+
+
+def bench_launches(row, repeats: int, iters: int) -> dict:
+    """K1 and K2 launches a bench row makes: one K1 per fusion round of each
+    forward, one K2 per round of each train step's backward; the calls are
+    the first, then a warm-up and the window per repeat (twice as long on a
+    re-measure)."""
+    calls = 1 + repeats * (1 + iters)
+    if row.get("remeasured_wider_window"):
+        calls += repeats * (1 + 2 * iters)
+    rounds = int(math.log2(row["views"]))
+    return {"pack": calls * rounds, "unpack": calls * rounds if row["kind"] == "train_step" else 0}
+
+
+def phase_bench(card: str, tmp: str) -> dict:
+    """The bench's rows at full shape on the card through ``bench.main``;
+    every row present, finite and positive, none still ``timing_suspect``,
+    the bf16 train step's state f32, K1/K2 launches as the rows imply and no
+    K3 or K4; returns the launch counts."""
+    import contextlib
+    import io
+
+    from highresnet_tpu_torch import bench
+
+    out = os.path.join(tmp, "BENCH_DETAILS.json")
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counts()
+    with contextlib.redirect_stdout(stdout):
+        details = bench.main(["--iters", str(BENCH_ITERS), "--repeats", str(BENCH_REPEATS),
+                              "--out", out])
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    rows = details["configs"]
+    line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    print(f"[bench] the bench's line: {json.dumps(line)}")
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or not line["value"] > 0:
+        raise AssertionError(f"[bench] bad headline line {line}")
+    if [r["name"] for r in rows] != [r.name for r in bench.ROWS]:
+        raise AssertionError(f"[bench] rows {[r['name'] for r in rows]}, expected every row")
+    want = {"pack": 0, "unpack": 0, "lanczos": 0, "pack_dma": 0}
+    for row in rows:
+        if "error" in row:
+            raise AssertionError(f"[bench] {row['name']} failed: {row['error']}")
+        size = f"patch {row['patch']}" if "patch" in row else f"{row['lr_size']} px"
+        extra = ""
+        if row["kind"] == "train_step":
+            extra = (f", last loss {row['last_loss']:.6g}, max |shift| "
+                     f"{row['max_abs_shift']:.4g} px, init {row['init_time_s']:.3f} s, "
+                     f"state {row['state_dtypes']}")
+        print(f"[bench] {row['name']}: batch {row['batch']} x {row['views']} views x {size} "
+              f"{row['dtype']}: {row['step_time_s'] * 1e3:.3f} ms a step, "
+              f"{row['scenes_per_sec']:.3f} scenes/s, {row['achieved_tflops_per_s']} TFLOP/s, "
+              f"utilization {row['utilization']}, peak {row['peak_memory_gb']:.2f} GB, first "
+              f"call {row['first_call_s']:.3f} s, launches {row['launches']}{extra}; {card}")
+        bad = [k for k in BENCH_NUMBERS if not (isinstance(row.get(k), (int, float))
+                                                and math.isfinite(row[k]) and row[k] > 0)]
+        if bad or row.get("timing_suspect"):
+            raise AssertionError(f"[bench] {row['name']}: non-finite or non-positive {bad}, "
+                                 f"or still timing_suspect: {row}")
+        if row["kind"] == "train_step" and row["state_dtypes"] != {
+                k: ["float32"] for k in ("params", "grads", "adam_moments")}:
+            raise AssertionError(f"[bench] {row['name']}: state not f32: {row['state_dtypes']}")
+        implied = bench_launches(row, BENCH_REPEATS, BENCH_ITERS)
+        if row["launches"] != implied:
+            raise AssertionError(f"[bench] {row['name']}: launches {row['launches']}, "
+                                 f"expected {implied}")
+        for k, n in implied.items():
+            want[k] += n
+    print(f"[bench] startup {json.dumps(details['startup'])}")
+    print(f"[bench] launches {counts} (expected {want}); {len(rows)} rows, {BENCH_ITERS} calls "
+          f"a window, {BENCH_REPEATS} window a row; phase wall {wall:.1f} s (limit "
+          f"{BENCH_PHASE_LIMIT_S:.0f}); {card}")
+    if counts != want or not (counts["pack"] > 0 and counts["unpack"] > 0):
+        raise AssertionError("[bench] the kernels' launches differ from the rows'")
+    if wall > BENCH_PHASE_LIMIT_S:
+        raise AssertionError(f"[bench] the phase took {wall:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script needs one NVIDIA GPU")
@@ -2406,6 +2503,8 @@ def main() -> None:
         phase_registration(card, tmp)
     if read_counts() != before:
         raise AssertionError(f"[registration] launched a kernel: {before} -> {read_counts()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        benched = phase_bench(card, tmp)
 
     sources = {
         "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),
@@ -2419,7 +2518,7 @@ def main() -> None:
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
         "launches": (predicted[key] + trained[key] + distributed[key] + viewed[key] + lab[key]
-                     + flagship[key] + examples[key]),
+                     + flagship[key] + examples[key] + benched[key]),
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

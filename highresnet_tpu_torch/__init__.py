@@ -3,9 +3,10 @@
 The JAX package ``highresnet_tpu`` is the reference; this package runs the
 same models on PyTorch, with the TPU's Pallas kernels rewritten by hand in
 CUDA for sm_90a. It imports ``torch`` and never JAX, nor anything of
-``highresnet_tpu``. Ported so far: the HRNet serving path (``cli.predict``),
-the registered training path (``cli.train``), the registration toolkit
-(``registration``) and the fusion lab (``labs.fusion_lab4``).
+``highresnet_tpu``. Ported: the HRNet serving path (``cli.predict``), the
+registered training path (``cli.train``), the registration toolkit
+(``registration``), the quality-experiment drivers (``examples``), the
+fusion lab (``labs.fusion_lab4``) and the bench (``bench``).
 
 - ``models``   HRNet, ShiftNet, the VGG19 feature extractor, f32-parameter
                layers, weight IO.
@@ -21,6 +22,7 @@ the registered training path (``cli.train``), the registration toolkit
 - ``train``    train state, steps, epoch loop, checkpoints, selection.
 - ``eval``     scene scoring, ESA-ratio table, submission writer.
 - ``runtime``  device setup (TF32 off, deterministic) and compute dtypes.
+- ``bench``    the JAX bench's rows on the card (``python -m highresnet_tpu_torch.bench``).
 """
 
 __version__ = "0.1.0"

@@ -23,14 +23,15 @@ REPO = Path(__file__).resolve().parents[1]
 PARITY_DB = 0.01
 # the modules the measured-best recipe added (the warm-start, JAX's cubic
 # resize, the dihedral transforms, the PCC alignment), the registration
-# toolkit's, data parallelism's with the host tooling, and the quality-experiment
-# drivers
+# toolkit's, data parallelism's with the host tooling, the quality-experiment
+# drivers, and the bench
 NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.search",
                "registration.warp", "registration.metrics", "registration.preprocess",
                "registration.session", "registration.app", "models.vgg",
                "cli.export_vgg_weights", "utils.display", "utils.heatmap_canvas",
                "parallel.distributed", "parallel.mesh", "cli.save_clearance",
                "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun",
+               "bench",
                *(f"examples.{name}" for name in (
                    "quality_report", "test_model", "display_dataset", "quality_experiment",
                    "views_ablation", "register_ablation", "tta_experiment", "flagship_recipe",

@@ -8,11 +8,15 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
   3. [pack] the pair-pack kernel (K1) against its plain PyTorch version:
      ``torch.equal`` at the headline shape, at every fusion round of the
      flagship's training step (batch 32, 32 px), validation forward (batch
-     4, 128 px) and served scene (batch 1, 128 px), and at odd shapes, each
-     in f32 and bf16 (K1 is timed in [dma]);
+     4, 128 px) and served scene (batch 1, 128 px), at every fusion round
+     of the bench's rows (the train steps at batch 32 x 32 views x 64 px,
+     the 32-view rows at batch 4 and 1, the batch-32 16-view forward), and
+     at odd shapes, each in f32 and bf16 (K1 is timed in [dma]);
   4. [unpack] the unpack kernel (K2) the same way at the first-round training
      shape, at every round's cotangent of the flagship step's backward
-     (32, L/2, 128, 32, 32), and at odd view counts, then gradients through ``PackPairs`` on
+     (32, L/2, 128, 32, 32), at every round's cotangent of the bench's
+     train steps (32, L/2, 128, 64, 64), L = 32 down to 2, in f32 and
+     bf16, and at odd view counts, then gradients through ``PackPairs`` on
      the card against the CPU plain version's autograd, bit for bit; K2
      timed in turns with K1 on a pack that moves the same bytes, the plain
      version and ``index_select``;
@@ -336,15 +340,27 @@ def fusion_rounds(batch: int, views: int, channels: int, size: int) -> list[tupl
     return shapes
 
 
+def bench_rows(kind: str | None = None) -> list:
+    """The bench's rows (of one kind): their (batch, views, px) are the
+    shapes its forwards and train steps give K1 and K2 at 64 channels."""
+    from highresnet_tpu_torch.bench import ROWS
+
+    return [row for row in ROWS if kind in (None, row.kind)]
+
+
 def phase_pack(fusion) -> dict:
     """K1 against pack_pairs_ref: bit-exact at the headline, at every fusion
-    round of the flagship's training, validation and serving forwards, and at
-    odd shapes, its output in a NaN-filled block (timed in [dma])."""
+    round of the flagship's training, validation and serving forwards and of
+    the bench's rows, and at odd shapes, its output in a NaN-filled block
+    (timed in [dma])."""
     g = torch.Generator(device="cuda").manual_seed(0)
     b, l, s = HEADLINE["batch"], HEADLINE["views"], HEADLINE["size"]
     flagship = [shape for batch, size in FLAGSHIP_FORWARDS
                 for shape in fusion_rounds(batch, FLAGSHIP["views"], 64, size)]
-    shapes = [(b, l, 64, s, s), *flagship, (2, 5, 3, 7, 5), (3, 5, 1, 3, 3), (1, 3, 5, 5, 5)]
+    benched = [shape for row in bench_rows()
+               for shape in fusion_rounds(row.batch, row.views, 64, row.size)]
+    shapes = list(dict.fromkeys([(b, l, 64, s, s), *flagship, *benched, (2, 5, 3, 7, 5),
+                                 (3, 5, 1, 3, 3), (1, 3, 5, 5, 5)]))
     max_err = 0.0
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -394,8 +410,13 @@ def phase_unpack(fusion, card: str) -> dict:
     fb, fs = FLAGSHIP_FORWARDS[0]
     flagship = [((fb, l, 2 * c, h, w), torch.float32)
                 for _, l, c, h, w in fusion_rounds(fb, FLAGSHIP["views"], 64, fs)]
+    # the bench's train steps' backward, f32 and bf16: (32, L/2, 128, 64, 64)
+    benched = list(dict.fromkeys(
+        ((b, l, 2 * c, h, w), dtype) for row in bench_rows("train_step")
+        for b, l, c, h, w in fusion_rounds(row.batch, row.views, 64, row.size)
+        for dtype in (torch.float32, torch.bfloat16)))
     cases = [(first_round, torch.float32), (first_round, torch.bfloat16), *flagship,
-             ((fb, FLAGSHIP["views"], 128, fs, fs), torch.bfloat16),
+             ((fb, FLAGSHIP["views"], 128, fs, fs), torch.bfloat16), *benched,
              ((2, 5, 6, 7, 5), torch.float32), ((3, 3, 2, 3, 3), torch.bfloat16),
              ((1, 3, 10, 5, 5), torch.float32), ((1, 3, 10, 5, 5), torch.bfloat16)]
     max_err = 0.0
@@ -2400,8 +2421,7 @@ def phase_bench(card: str, tmp: str) -> dict:
     t0 = time.perf_counter()
     reset_counts()
     with contextlib.redirect_stdout(stdout):
-        details = bench.main(["--iters", str(BENCH_ITERS), "--repeats", str(BENCH_REPEATS),
-                              "--out", out])
+        details = bench.main(["--out", out], iters=BENCH_ITERS, repeats=BENCH_REPEATS)
     counts = read_counts()
     wall = time.perf_counter() - t0
     rows = details["configs"]
@@ -2440,7 +2460,12 @@ def phase_bench(card: str, tmp: str) -> dict:
                                  f"expected {implied}")
         for k, n in implied.items():
             want[k] += n
-    print(f"[bench] startup {json.dumps(details['startup'])}")
+    # in-process the bench's clock starts at its import, during [pack]: its
+    # process-start figure is the bench's own only when run as a program
+    startup = {k: v for k, v in details["startup"].items()
+               if k not in ("what", "process_start_to_first_step_s")}
+    print(f"[bench] startup (the build, the f32 train row's init and first step) "
+          f"{json.dumps(startup)}")
     print(f"[bench] launches {counts} (expected {want}); {len(rows)} rows, {BENCH_ITERS} calls "
           f"a window, {BENCH_REPEATS} window a row; phase wall {wall:.1f} s (limit "
           f"{BENCH_PHASE_LIMIT_S:.0f}); {card}")

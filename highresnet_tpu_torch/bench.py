@@ -2,7 +2,6 @@
 the JAX bench's other rows.
 
     python -m highresnet_tpu_torch.bench [--smoke] [--device cuda|cpu] [--out PATH]
-        [--iters N] [--repeats N]
 
 The counterpart of the root ``bench.py``, row for row (``ROWS``):
 
@@ -108,15 +107,7 @@ ROWS = (
 )
 SMOKE_ROW = Row("smoke", "forward", 1, 2, 16, iters=45)
 REPEATS = 3
-
-
-def process_age_s() -> float:
-    """Seconds since this process started, from Linux's ``/proc``."""
-    with open("/proc/self/stat") as f:
-        fields = f.read().rsplit(")", 1)[1].split()  # from field 3, the state
-    with open("/proc/uptime") as f:
-        uptime = float(f.read().split()[0])
-    return uptime - int(fields[19]) / os.sysconf("SC_CLK_TCK")  # field 22, starttime
+_T_PROC0 = time.perf_counter()  # process start (this module's import), for the startup entry
 
 
 def log(msg: str) -> None:
@@ -296,7 +287,7 @@ class Bench:
             return metrics
 
         first_s, _ = first_call(one_step, self.device)
-        age_s = process_age_s()
+        age_s = time.perf_counter() - _T_PROC0
         flops = row_flops(row, cfg["network"])
         out = {"init_time_s": round(init_s, 3), "first_call_s": first_s,
                **measure(row, one_step, flops, self.iters_of(row), self.repeats)}
@@ -312,8 +303,8 @@ class Bench:
             f"{out['max_abs_shift']} px")
         if row.dtype == "float32" and "startup" not in self.details:
             self.details["startup"] = {
-                "what": "process start to the first completed train step (eager: no "
-                        "compile; the rows before this one included)",
+                "what": "process start (the bench module's import) to the first completed "
+                        "train step (eager: no compile; the rows before this one included)",
                 **self.details.get("kernels", {}),
                 "init_time_s": round(init_s, 3),
                 "first_step_s": round(first_s, 3),
@@ -383,21 +374,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="one tiny forward (batch 1, 2 views, 16 px)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=str(DEFAULT_OUT), help="the details file")
-    ap.add_argument("--iters", type=int, default=None,
-                    help="calls per timed window for every row (default: each row's own)")
-    ap.add_argument("--repeats", type=int, default=REPEATS, help="timed windows per row")
     args = ap.parse_args(argv)
     if not args.smoke and torch.device(args.device).type == "cpu":
         ap.error("the full rows need a card; on the CPU run --smoke")
     return args
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Run the bench; returns the details (the rows under ``configs``)."""
+def main(argv=None, iters: int | None = None, repeats: int = REPEATS) -> Dict[str, Any]:
+    """Run the bench; returns the details (the rows under ``configs``).
+    ``iters`` and ``repeats`` shorten every row's windows for a caller in
+    the same process (default: each row's own window, ``REPEATS`` times)."""
     args = parse_args(argv)
     device = setup_device(args.device)
     out = Path(args.out)
-    bench = Bench(device, iters=args.iters, repeats=args.repeats)
+    bench = Bench(device, iters=iters, repeats=repeats)
     details = bench.details
     details.update({
         "device": card_line() if device.type == "cuda" else "cpu",

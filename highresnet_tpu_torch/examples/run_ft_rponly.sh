@@ -13,14 +13,15 @@
 # recorded beside the run dirs; every later (regenerated or kept) base must
 # read the same epoch and score, or the script stops before fine-tuning.
 #
-# Data and run dirs go under $TMPDIR/hrn_varl_data, reports under
-# build/examples/; the arguments pass through to every leg, e.g.
+# Data and run dirs go under $TMPDIR/hrn_varl_data (build/hrn_varl_data
+# in the checkout when TMPDIR is unset), reports under build/examples/; the
+# arguments pass through to every leg, e.g.
 #
 #   bash highresnet_tpu_torch/examples/run_ft_rponly.sh [--device cpu]
 set -u
 cd "$(dirname "$0")/../.." || exit 1
 
-ROOT="${TMPDIR:-/tmp}/hrn_varl_data"
+ROOT="${TMPDIR:-$PWD/build}/hrn_varl_data"
 CKPT="$ROOT/ckpt"
 REPORTS=build/examples
 COMMON=(--root "$ROOT" --scenes-per-channel 580 --views 16

@@ -12,14 +12,15 @@
 #      ablation curve.
 # Every training leg resumes from its run dir when the script is run again
 # (stable names, --checkpoint-every 10). Data and run dirs go under
-# $TMPDIR/hrn_varl_data, reports under build/examples/; the arguments pass
-# through to every leg, e.g.
+# $TMPDIR/hrn_varl_data (build/hrn_varl_data in the checkout when TMPDIR is
+# unset), reports under build/examples/; the arguments pass through to every
+# leg, e.g.
 #
 #   bash highresnet_tpu_torch/examples/run_round5_queue.sh [--device cpu]
 set -u
 cd "$(dirname "$0")/../.." || exit 1
 
-ROOT="${TMPDIR:-/tmp}/hrn_varl_data"
+ROOT="${TMPDIR:-$PWD/build}/hrn_varl_data"
 CKPT="$ROOT/ckpt"
 REPORTS=build/examples
 COMMON=(--root "$ROOT" --scenes-per-channel 580 --views 16

@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -256,7 +257,7 @@ def test_a_failing_row_is_recorded_and_the_next_runs(tmp_path, monkeypatch, caps
 
 
 def test_process_age_counts_from_process_start():
-    age = bench.process_age_s()
+    age = time.perf_counter() - bench._T_PROC0
     assert 0 < age < 24 * 3600
 
 
@@ -301,8 +302,10 @@ def queue(tmp_path):
            "REAL_PYTHON": sys.executable, "LEG_LOG": str(log), "TMPDIR": str(tmp)}
 
     def run(name: str, *args: str, **extra_env) -> tuple[int, list, str]:
+        """Run a script; an ``extra_env`` value of None unsets that variable."""
         log.write_text("")
-        proc = subprocess.run(["bash", str(tree / name), *args], env={**env, **extra_env},
+        run_env = {k: v for k, v in {**env, **extra_env}.items() if v is not None}
+        proc = subprocess.run(["bash", str(tree / name), *args], env=run_env,
                               capture_output=True, text=True, timeout=120)
         legs = [json.loads(line) for line in log.read_text().splitlines()]
         return proc.returncode, legs, proc.stdout + proc.stderr
@@ -339,6 +342,7 @@ def test_queue_script_passes_bash_n_and_points_at_the_port(name):
     sh = path.read_text()
     assert "supervise_tpu" not in sh and "examples/quality_experiment.py" not in sh
     assert not [w for w in sh.split() if w.startswith("/")]  # no absolute path
+    assert "/tmp" not in sh  # not even as the fallback of an unset TMPDIR
     assert "RECIPE_" in sh
     assert os.access(path, os.X_OK)
 
@@ -367,6 +371,16 @@ def test_run_ft_rponly_legs_and_the_fixl_cross_check(queue, monkeypatch):
     rc, legs, out = run("run_ft_rponly.sh", BEST_SCORE='{"score": -16.0, "epoch": 41}')
     assert rc != 0 and "fixL base mismatch" in out
     assert [leg[leg.index("--run-name") + 1] for leg in legs] == ["fixL"]
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_queue_script_without_tmpdir_keeps_its_data_in_the_checkout(queue, name):
+    run, tree, _ = queue
+    rc, legs, out = run(name, TMPDIR=None)
+    assert rc == 0, out
+    roots = {leg[leg.index("--root") + 1] for leg in legs}
+    assert [os.path.realpath(r) for r in roots] == [
+        os.path.realpath(tree / "build" / "hrn_varl_data")]
 
 
 def test_run_round5_queue_legs(queue, monkeypatch):

@@ -147,6 +147,20 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      parameters, gradients and Adam moments f32, each row's K1/K2 launches
      as its calls imply and no K3 or K4, the phase within 150 s; each row
      printed beside the card line.
+ 15. [labs] the five perf labs of ``highresnet_tpu_torch/labs/`` through their
+     own ``main`` at the JAX labs' default shapes with short windows:
+     fusion_lab in f32 and bf16 (every ``*_max_abs_diff`` within 1e-4 of its
+     control's largest magnitude in f32 with TF32 off, within the bf16
+     envelope's 1.5e-2 in bf16), fusion_lab2 and fusion_lab3 in bf16
+     (v3_flat likewise; the lab's own ``pack_equal``, then K1 at the lab's
+     pack shape ``torch.equal`` to ``pack_pairs_ref`` in a NaN-filled
+     block), bench_breakdown in f32 and bf16, and trace_train_step on the
+     bench's train rows (batch 32 x 32 views x 64 px) in f32 and bf16 with
+     2 traced steps: its categories summing to its device total within 1%,
+     the port's kernels among them, its device ms a step within 10% of
+     [bench]'s window for that row. Each
+     lab's K1/K2 launches as its calls imply (K2 only in the trace's
+     backward), no K3 or K4; every lab key printed beside the card line.
 Each bit-exact or tolerance check of K1-K4 reads an output that the kernel
 wrote into a block just filled with NaN and freed (``poison``), so a byte
 the kernel leaves unwritten shows. Kernel times: ``ms`` is device time per
@@ -155,7 +169,7 @@ events (median of 10 replays); ``call_ms`` is one call between two events,
 the wrapper's host part included (median of 20), the series of the earlier
 runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
 Then one JSON line with the kernels (``launches`` sums the predict, train,
-dist (both ranks), view (every rank), lab, flagship, examples and bench runs,
+dist (both ranks), view (every rank), lab, flagship, examples, bench and labs runs,
 the fused warm-start included; K3's entry also holds its serving shapes and
 frac_cpsnr's;
 ``bound_ms`` is the least time the card could take for the timed call,
@@ -167,7 +181,9 @@ Needs CUDA; it imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -2410,10 +2426,7 @@ def phase_bench(card: str, tmp: str) -> dict:
     """The bench's rows at full shape on the card through ``bench.main``;
     every row present, finite and positive, none still ``timing_suspect``,
     the bf16 train step's state f32, K1/K2 launches as the rows imply and no
-    K3 or K4; returns the launch counts."""
-    import contextlib
-    import io
-
+    K3 or K4; returns the launch counts and the rows."""
     from highresnet_tpu_torch import bench
 
     out = os.path.join(tmp, "BENCH_DETAILS.json")
@@ -2473,7 +2486,166 @@ def phase_bench(card: str, tmp: str) -> dict:
         raise AssertionError("[bench] the kernels' launches differ from the rows'")
     if wall > BENCH_PHASE_LIMIT_S:
         raise AssertionError(f"[bench] the phase took {wall:.1f} s")
+    return counts, rows
+
+
+# [labs]: the perf labs at the JAX labs' default shapes, LABS_ITERS calls a
+# timing after LABS_WARMUP, the trace over LABS_TRACE_STEPS steps
+LABS_ITERS, LABS_WARMUP, LABS_TRACE_STEPS = 2, 1, 2
+# a variant against its control in f32, TF32 off: other sums, other algorithms
+LABS_F32_RTOL = 1e-4
+LABS_TRACE_RTOL = 0.10  # the trace's device ms a step against [bench]'s window
+LABS_CATEGORY_RTOL = 0.01  # the categories' sum against the device total
+LABS_PHASE_LIMIT_S = 150.0
+
+
+def labs_launches(name: str, report: dict) -> dict:
+    """K1 and K2 launches a lab's run implies: one K1 per fusion round of
+    each FusionNet call (and per pack call), one K2 per round of each train
+    step's backward; every timing is ``warmup + iters`` calls."""
+    calls = report.get("warmup", 0) + report.get("iters", 0)
+    rounds = int(math.log2(report["views"]))
+    if name.startswith("fusion_lab "):  # v0 timed, then once against v1/v2
+        return {"pack": rounds * (calls + 1), "unpack": 0}
+    if name == "fusion_lab2":  # p_concat and full_v0 timed, full_v0 once against v3
+        return {"pack": rounds * (2 * calls + 1), "unpack": 0}
+    if name == "fusion_lab3":  # the pack timed and compared; gated and no-gate fusion timed
+        return {"pack": calls + 1 + 2 * rounds * calls, "unpack": 0}
+    if name == "bench_breakdown":  # per dtype: the forward and the fusion stage timed, one fuse
+        return {"pack": len(report["stages"]) * rounds * (2 * calls + 1), "unpack": 0}
+    steps = report["steps_run"]  # a trace: every step one forward and one backward
+    return {"pack": rounds * steps, "unpack": rounds * steps}
+
+
+def phase_labs(fusion, card: str, tmp: str, bench_rows_run: list) -> dict:
+    """The five labs on the card through their ``main``; returns their K1/K2
+    launches (the NaN-block check of K1 at fusion_lab3's shape comes after
+    the counts are read)."""
+    from highresnet_tpu_torch.labs import (
+        bench_breakdown,
+        fusion_lab,
+        fusion_lab2,
+        fusion_lab3,
+        trace_train_step,
+    )
+
+    t0 = time.perf_counter()
+    window = ["--device", "cuda", "--iters", str(LABS_ITERS), "--warmup", str(LABS_WARMUP)]
+    out = lambda name: ["--out", os.path.join(tmp, f"{name.replace(' ', '_')}.json")]  # noqa: E731
+    breakdown_out = out("bench_breakdown")
+    runs = [(f"fusion_lab {dtype}", fusion_lab, ["--dtype", dtype])
+            for dtype in ("float32", "bfloat16")]
+    runs += [("fusion_lab2", fusion_lab2, []), ("fusion_lab3", fusion_lab3, []),
+             ("bench_breakdown", bench_breakdown, [])]
+    reports = {}
+    reset_counts()
+    for name, lab, argv in runs:
+        before = read_counts()
+        reports[name] = lab.main([*window, *out(name), *argv])
+        torch.cuda.empty_cache()
+        print(f"[labs] {name}: {json.dumps(reports[name])}; {card}")
+        check_lab_launches(name, reports[name], before)
+    for dtype in ("float32", "bfloat16"):
+        name = f"trace {dtype}"
+        before = read_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            reports[name] = trace_train_step.main([
+                "--device", "cuda", "--dtype", dtype, "--steps", str(LABS_TRACE_STEPS),
+                *out(name), "--trace-dir", os.path.join(tmp, f"{dtype}_train"),
+                "--breakdown", breakdown_out[1]])
+        torch.cuda.empty_cache()
+        print(f"[labs] {name}: " + json.dumps(
+            {k: v for k, v in reports[name].items() if k != "top_ops"}) + f"; {card}")
+        check_lab_launches(name, reports[name], before)
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+
+    for dtype in ("float32", "bfloat16"):
+        f = reports[f"fusion_lab {dtype}"]
+        for key, scale in (("v1_max_abs_diff", f["fusion"]["v0_max_abs"]),
+                           ("v2_max_abs_diff", f["fusion"]["v0_max_abs"]),
+                           ("d1_max_abs_diff", f["decoder"]["d0_max_abs"])):
+            check_variant(f"fusion_lab {dtype} {key}", {**f["fusion"], **f["decoder"]}[key],
+                          scale, dtype)
+    lab2 = reports["fusion_lab2"]
+    check_variant("fusion_lab2 v3_max_abs_diff", lab2["v3_max_abs_diff"], lab2["v0_max_abs"],
+                  lab2["dtype"])
+    lab3 = reports["fusion_lab3"]
+    if lab3["pack_equal"] is not True:
+        raise AssertionError("[labs] fusion_lab3: K1's pack differs from pack_pairs_ref")
+    for probe in ("bw_c64", "bw_c128", "bw_concat64"):
+        p = lab2[probe]
+        print(f"[labs] fusion_lab2 {probe}: {p['gb_per_s']:.1f} GB/s, {p['share_of_hbm']:.1%} of "
+              f"3.35 TB/s; {card}")
+    for dtype, row in reports["bench_breakdown"]["stages"].items():
+        times = {k: v for k, v in row.items() if k.endswith("_s")}
+        if not all(math.isfinite(v) and v > 0 for v in times.values()):
+            raise AssertionError(f"[labs] bench_breakdown {dtype}: bad stage times {times}")
+        print(f"[labs] bench_breakdown {dtype}: stage sum / full forward "
+              f"{row['stage_sum_s'] / row['full_forward_s']:.3f}; conv64_stack "
+              f"{row['conv64_stack']['tflops_per_s']:.2f} TFLOP/s, conv128_stack "
+              f"{row['conv128_stack']['tflops_per_s']:.2f}; {card}")
+
+    bench_ms = {row["dtype"]: row["step_time_s"] * 1e3 for row in bench_rows_run
+                if row["kind"] == "train_step"}
+    for dtype in ("float32", "bfloat16"):
+        t = reports[f"trace {dtype}"]
+        cats = t["category_accounting_ms_per_step"]
+        total = t["device_ms_per_step"]
+        print(f"[labs] trace {dtype}: device {total:.3f} ms a step (the bench's window "
+              f"{bench_ms[dtype]:.3f}, the lab's own {t['window_ms_per_step']:.3f}), idle share "
+              f"{t['idle_share']:.4f}, 'other' {t['other_share']:.2%}, categories "
+              f"{json.dumps(cats)}, loss finite {t['loss_finite']} ({t['last_loss']:.6g}); "
+              f"ceiling: {t['ceiling_accounting']['text']}; {card}")
+        for row in t["top_ops"][:10]:
+            print(f"[labs] trace {dtype} top op: {row['us_per_step']:.1f} us a step "
+                  f"({row['pct']:.2f}%, x{row['count_per_step']:g}) [{row['category']}] "
+                  f"{row['op'][:160]}")
+        if not cats[trace_train_step.PORT] > 0:
+            raise AssertionError(f"[labs] trace {dtype}: K1/K2 launched, no port kernel traced")
+        if abs(sum(cats.values()) - total) > LABS_CATEGORY_RTOL * total:
+            raise AssertionError(f"[labs] trace {dtype}: categories sum to {sum(cats.values())}, "
+                                 f"device total {total}")
+        if abs(total - bench_ms[dtype]) > LABS_TRACE_RTOL * bench_ms[dtype]:
+            raise AssertionError(f"[labs] trace {dtype}: {total:.3f} ms a step on the device, "
+                                 f"the bench's window {bench_ms[dtype]:.3f}")
+
+    # K1 at fusion_lab3's pack shape against the plain version, its output in a
+    # NaN-filled block (after the counts: a check's launch is not the lab's)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, l, c, s = (lab3[k] for k in ("batch", "views", "channels", "size"))
+    x = torch.randn((b, l, c, s, s), generator=g, device="cuda").to(torch.bfloat16)
+    address = poison((b, l // 2, 2 * c, s, s), torch.bfloat16)
+    got = fusion_lab3.ROUTES["pack_pallas"](x)
+    check_poisoned(got, address, "[labs] fusion_lab3's K1")
+    if not torch.equal(got, fusion_lab3.ROUTES["pack_xla"](x)):
+        raise AssertionError("[labs] fusion_lab3's K1 != pack_pairs_ref in a NaN-filled block")
+    write_counts(counts)
+    print(f"[labs] fusion_lab3's K1 at {tuple(x.shape)} bf16, output in a NaN-filled block: "
+          f"torch.equal to pack_pairs_ref True")
+    print(f"[labs] launches {counts}; phase wall {wall:.1f} s (limit "
+          f"{LABS_PHASE_LIMIT_S:.0f}); {card}")
+    if counts["lanczos"] or counts["pack_dma"] or not (counts["pack"] and counts["unpack"]):
+        raise AssertionError(f"[labs] launches {counts}")
+    if wall > LABS_PHASE_LIMIT_S:
+        raise AssertionError(f"[labs] the phase took {wall:.1f} s")
     return counts
+
+
+def check_lab_launches(name: str, report: dict, before: dict) -> None:
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    want = {**labs_launches(name, report), "lanczos": 0, "pack_dma": 0}
+    print(f"[labs] {name}: launches {got} (expected {want})")
+    if got != want or {k: got[k] for k in report["launches"]} != report["launches"]:
+        raise AssertionError(f"[labs] {name}: launches {got}, expected {want}, the lab's own "
+                             f"{report['launches']}")
+
+
+def check_variant(what: str, diff: float, scale: float, dtype: str) -> None:
+    limit = (LABS_F32_RTOL if dtype == "float32" else BF16_MAX) * scale
+    print(f"[labs] {what} {diff:.4e} (limit {limit:.4e} of max|control| {scale:.4f})")
+    if not diff <= limit:
+        raise AssertionError(f"[labs] {what} {diff} past {limit}")
 
 
 def main() -> None:
@@ -2529,7 +2701,9 @@ def main() -> None:
     if read_counts() != before:
         raise AssertionError(f"[registration] launched a kernel: {before} -> {read_counts()}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
-        benched = phase_bench(card, tmp)
+        benched, bench_rows_run = phase_bench(card, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_labs_") as tmp:
+        labs = phase_labs(fusion, card, tmp, bench_rows_run)
 
     sources = {
         "pack": ("pack_pairs", "pack_pairs.cu", "highresnet_tpu/ops/fusion_pallas.py:46"),
@@ -2543,7 +2717,7 @@ def main() -> None:
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
         "launches": (predicted[key] + trained[key] + distributed[key] + viewed[key] + lab[key]
-                     + flagship[key] + examples[key] + benched[key]),
+                     + flagship[key] + examples[key] + benched[key] + labs[key]),
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

@@ -262,37 +262,28 @@ class Bench:
                 **measure(row, fn, flops, self.iters_of(row), self.repeats),
                 "first_scores_finite": bool(torch.isfinite(scores).all())}
 
-    def row_train_step(self, row: Row) -> Dict[str, Any]:
+    def train_step(self, row: Row) -> "TrainStep":
         """The registered train step on DEFAULT_CONFIG with the row's batch,
-        views (min_L too) and patch, the plain warp as configured; the f32
-        row also writes the startup entry."""
-        from highresnet_tpu_torch.train.state import create_train_state
-        from highresnet_tpu_torch.train.step import build_train_step
-
+        views (min_L too), patch and compute dtype, the plain warp as
+        configured, on the seed-0 state and the row's inputs."""
         cfg = copy.deepcopy(self.config)
         cfg["training"].update({"batch_size": row.batch, "n_views": row.views,
                                 "min_L": row.views, "patch_size": row.size,
                                 "compute_dtype": row.dtype})
-        t0 = time.perf_counter()
-        state = create_train_state(cfg, self.device, torch.Generator().manual_seed(0))
-        synchronize(self.device)
-        init_s = time.perf_counter() - t0
-        step = build_train_step(cfg)
-        args = scored_inputs(row, self.device)
-        metrics = {}
+        return TrainStep(cfg, self.device, scored_inputs(row, self.device))
 
-        def one_step():
-            nonlocal state, metrics
-            state, metrics = step(state, *args)
-            return metrics
-
+    def row_train_step(self, row: Row) -> Dict[str, Any]:
+        """A train row's step timed; the f32 row also writes the startup entry."""
+        one_step = self.train_step(row)
+        init_s = one_step.init_s
         first_s, _ = first_call(one_step, self.device)
         age_s = time.perf_counter() - _T_PROC0
-        flops = row_flops(row, cfg["network"])
+        flops = row_flops(row, one_step.config["network"])
         out = {"init_time_s": round(init_s, 3), "first_call_s": first_s,
                **measure(row, one_step, flops, self.iters_of(row), self.repeats)}
         out["projected_400epoch_1160scene_hours"] = (
             PROJECTED_EPOCHS * PROJECTED_SCENES * out["step_time_s"] / row.batch / 3600)
+        state, metrics = one_step.state, one_step.metrics
         out["steps"] = state.step
         out["last_loss"] = float(metrics["loss"])
         out["max_abs_shift"] = float(metrics["max_abs_shift"])
@@ -312,6 +303,28 @@ class Bench:
                 "process_start_to_first_step_s": round(age_s, 3),
             }
         return out
+
+
+class TrainStep:
+    """A train row's registered step on its own state and inputs: each call
+    takes one step (the state advances) and returns its metrics."""
+
+    def __init__(self, config: Dict[str, Any], device: torch.device, args: tuple):
+        from highresnet_tpu_torch.train.state import create_train_state
+        from highresnet_tpu_torch.train.step import build_train_step
+
+        self.config = config
+        t0 = time.perf_counter()
+        self.state = create_train_state(config, device, torch.Generator().manual_seed(0))
+        synchronize(device)
+        self.init_s = time.perf_counter() - t0
+        self.step = build_train_step(config)
+        self.args = args
+        self.metrics: Dict[str, Any] = {}
+
+    def __call__(self) -> Dict[str, Any]:
+        self.state, self.metrics = self.step(self.state, *self.args)
+        return self.metrics
 
 
 def state_dtypes(state) -> Dict[str, list]:

@@ -31,42 +31,19 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import time
 from pathlib import Path
-from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from highresnet_tpu_torch.config import DEFAULT_CONFIG
+from highresnet_tpu_torch.labs.common import device_line, median_s, write_report
 from highresnet_tpu_torch.models.hrnet import HRNet
 from highresnet_tpu_torch.ops import fusion, fusion_dma
-from highresnet_tpu_torch.runtime import card_line, setup_device
+from highresnet_tpu_torch.runtime import setup_device
 
 DEFAULT_OUT = Path(__file__).resolve().parents[2] / "build" / "fusion_lab4_torch.json"
-
-
-def median_s(fn: Callable[[], object], device: torch.device, iters: int, warmup: int) -> float:
-    """Median seconds of one ``fn()`` call over ``iters`` calls after ``warmup``."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-    return statistics.median(times)
 
 
 def parse_args(argv):
@@ -95,7 +72,7 @@ def main(argv=None) -> dict:
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
     report = {
-        "device": card_line() if device.type == "cuda" else "cpu",
+        "device": device_line(device),
         "shape": {"batch": b, "views": l, "size": s, "channels": c},
         "dtype": "bfloat16",
         "iters": args.iters,
@@ -151,9 +128,7 @@ def main(argv=None) -> dict:
         entry.update(scenes_per_s=batch / entry["step_s"], finite=finite)
         del model
 
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(report, indent=2) + "\n")
+    write_report(report, args.out)
     return report
 
 

@@ -31,7 +31,10 @@ NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.sea
                "cli.export_vgg_weights", "utils.display", "utils.heatmap_canvas",
                "parallel.distributed", "parallel.mesh", "cli.save_clearance",
                "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun",
-               "bench",
+               "bench", "labs.common",  # with the perf labs below
+               *(f"labs.{name}" for name in (
+                   "fusion_lab", "fusion_lab2", "fusion_lab3", "bench_breakdown",
+                   "trace_train_step")),
                *(f"examples.{name}" for name in (
                    "quality_report", "test_model", "display_dataset", "quality_experiment",
                    "views_ablation", "register_ablation", "tta_experiment", "flagship_recipe",

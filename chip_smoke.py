@@ -76,6 +76,19 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      rank, the phase's wall time; then ``cli.train`` on the layout with
      NCCL over pairs of cards when there are two or more (on one card it
      says the leg did not run).
+  8d. [options] the loop's four options through ``cli.train`` at the tiny
+     width of tests/test_torch_loop_options.py (8 channels, 4 views of 24
+     px, batch 2, register 32, EMA on, every step registered through the
+     fused warp, 2 epochs) on a misaligned synthetic set without norm.csv,
+     each on the card and on the port's CPU path: ``cache_val_batches``
+     false, ``grad_clip_norm`` at the CPU run's median first-epoch
+     grad_norm (binding on some steps and not others on both), ``val_views``
+     [2, 1], and ``early_stop_patience`` 1 at lr 0 (stopped at epoch 2,
+     best epoch 1) relaunched with more epochs (one epoch run, stopped at
+     3): each step's loss within 1e-4 and grad_norm within 1e-3 of the
+     CPU's, each epoch's score within 0.01 dB, the epochs and best epoch
+     equal; each card run's K1/K2/K3 launches against the count its steps
+     and val forwards imply; the phase within 40 s.
   9. [dma] the bulk-copy pair pack (K4) against ``pack_pairs_ref``:
      ``torch.equal`` at the lab shape (bf16, f32) and at odd view counts,
      the ``ValueError`` on a misaligned view block, then K4, K1, the plain
@@ -169,7 +182,8 @@ events (median of 10 replays); ``call_ms`` is one call between two events,
 the wrapper's host part included (median of 20), the series of the earlier
 runs. ``plain_ms`` and ``library_ms`` use the graph timer too.
 Then one JSON line with the kernels (``launches`` sums the predict, train,
-dist (both ranks), view (every rank), lab, flagship, examples, bench and labs runs,
+dist (both ranks), view (every rank), options, lab, flagship, examples, bench and
+labs runs,
 the fused warm-start included; K3's entry also holds its serving shapes and
 frac_cpsnr's;
 ``bound_ms`` is the least time the card could take for the timed call,
@@ -1386,6 +1400,201 @@ def phase_view(card: str, tmp: str, oracle_data2: dict, floor_data2: dict) -> di
         print(f"[view-nccl] cli.train on the 2-D layout over NCCL needs two cards (one rank "
               f"per card); this machine has {torch.cuda.device_count()}: the leg did not run")
     print(f"[view] phase wall {time.perf_counter() - t0:.1f} s; {card}")
+    return summed
+
+
+# [options]: the loop's four options that the CPU tests hold against JAX
+# (tests/test_torch_loop_options.py), each through cli.train at the tiny
+# width of those tests (8 channels, 4 views of 24 px, patch 16, register 32,
+# batch 2, EMA on), every step registered through the fused warp, on a
+# misaligned synthetic set without norm.csv (the val score is then -cPSNR in
+# dB), ShiftNet's dropout off and no warm-start (the card and the CPU draw
+# other masks and crops); the card's run against the port's CPU run of the
+# same config. lr 1e-4, not the config's 7e-4: at 7e-4 the f32 run of this
+# config parts from its float64 run within 8 steps by nearly
+# STEP_GRAD_NORM_RTOL in a step's grad_norm on the CPU alone (Adam's steps
+# of ±lr on gradients that are zero in exact arithmetic, hazard H13)
+OPTIONS = dict(scenes_per_channel=6, views=5, size=24, hr_shift_sigma=1.25, epochs=2,
+               stop_epochs=4, relaunch_epochs=6, patience=1, val_views=[2, 1])
+OPTIONS_CONFIG = {
+    "network": {
+        "encoder": {"in_channels": 2, "num_layers": 1, "kernel_size": 3, "channel_size": 8},
+        "recursive": {"alpha_residual": True, "in_channels": 8, "kernel_size": 3},
+        "decoder": {
+            "deconv": {"in_channels": 8, "kernel_size": 3, "stride": 3, "out_channels": 8},
+            "final": {"in_channels": 8, "kernel_size": 1, "out_channels": 1},
+        },
+    },
+    "training": {
+        "batch_size": 2, "min_L": 4, "n_views": 4, "crop": 1, "lr": 1e-4, "lr_step": 0,
+        "lr_decay": 0.5, "beta": 50.0, "create_patches": True, "patch_size": 16,
+        "register_size": 32, "val_proportion": 0.34, "lambda": 1e-6, "n_workers": 1,
+        "seed": 0, "eval_batch_size": 2, "checkpoint_every": 1, "register": True,
+        "ema_decay": 0.9, "use_pallas_warp": True, "data_parallel": False,
+    },
+}
+OPTIONS_PHASE_LIMIT_S = 40.0
+
+
+@contextlib.contextmanager
+def recording_loop():
+    """Each train step's loss and grad_norm, each epoch's stats and the
+    number of eval-step calls of the ``train_and_get_best_model`` runs
+    inside the block, ShiftNet's dropout off in them."""
+    from highresnet_tpu_torch.train import loop, setup
+
+    record = {"steps": [], "epochs": [], "evals": 0}
+    real = (loop.run_train_epoch, setup.build_train_step, setup.build_eval_step,
+            setup.create_train_state)
+
+    def create_state(*args, **kwargs):  # dropout off: the card and the CPU draw other masks
+        state = real[3](*args, **kwargs)
+        state.shiftnet.dropout = 0.0
+        return state
+
+    def epoch(*args, **kwargs):
+        state, stats, n = real[0](*args, **kwargs)
+        record["epochs"].append({**stats, "steps": n})
+        return state, stats, n
+
+    def build_train(*args, **kwargs):
+        step = real[1](*args, **kwargs)
+
+        def recorded(state, *batch):
+            state, m = step(state, *batch)
+            record["steps"].append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()})
+            return state, m
+
+        return recorded
+
+    def build_eval(*args, **kwargs):
+        step = real[2](*args, **kwargs)
+
+        def counted(*batch):
+            record["evals"] += 1
+            return step(*batch)
+
+        return counted
+
+    loop.run_train_epoch, setup.build_train_step, setup.build_eval_step, \
+        setup.create_train_state = epoch, build_train, build_eval, create_state
+    try:
+        yield record
+    finally:
+        loop.run_train_epoch, setup.build_train_step, setup.build_eval_step, \
+            setup.create_train_state = real
+
+
+def options_run(tmp: str, root: str, name: str, device: str, **training) -> dict:
+    """cli.train on ``device`` with OPTIONS_CONFIG and ``training``, in the run
+    directory ``name`` (a second call resumes it); the steps and epochs,
+    the result and the kernels launched."""
+    from highresnet_tpu_torch.cli import train
+
+    cfg = json.loads(json.dumps(OPTIONS_CONFIG))
+    cfg["training"].update({"num_epochs": OPTIONS["epochs"], **training})
+    cfg["paths"] = {"prefix": root, "checkpoint_dir": os.path.join(tmp, "runs"),
+                    "tb_log_file_dir": ""}
+    path = os.path.join(tmp, f"{name}_{device}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    with recording_loop() as record:
+        reset_counts()
+        out = train.main(["--config", path, "--run-dir", os.path.join(tmp, f"{name}_{device}"),
+                          "--device", device])
+        record["counts"] = read_counts()
+    record.update(best_epoch=out["best_epoch"], best_score=out["best_score"],
+                  val_history=out["val_history"])
+    return record
+
+
+def options_want(record: dict, views: int) -> dict:
+    """A card run's K1/K2/K3 launches: K1 once per fusion round of each train
+    and val forward, K2 per round of each backward, K3 once per step (every
+    step registered, fused warp)."""
+    rounds = int(np.log2(views))
+    steps = len(record["steps"])
+    return {"pack": rounds * (steps + record["evals"]), "unpack": rounds * steps,
+            "lanczos": steps, "pack_dma": 0}
+
+
+def options_parity(tag: str, gpu: dict, cpu: dict) -> None:
+    """The card's run against the CPU run: the same steps and epochs, each
+    step's loss within STEP_LOSS_RTOL and grad_norm within
+    STEP_GRAD_NORM_RTOL, each epoch's selection score within SCORE_ATOL_DB,
+    the val history's epochs and the best epoch equal."""
+    if len(gpu["steps"]) != len(cpu["steps"]) or \
+            [e for e, _ in gpu["val_history"]] != [e for e, _ in cpu["val_history"]]:
+        raise AssertionError(f"[options] {tag}: the card ran other steps or epochs than the CPU: "
+                             f"{len(gpu['steps'])} vs {len(cpu['steps'])} steps, "
+                             f"{gpu['val_history']} vs {cpu['val_history']}")
+    d_loss = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
+                 for g, c in zip(gpu["steps"], cpu["steps"]))
+    d_norm = max(abs(g["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+                 for g, c in zip(gpu["steps"], cpu["steps"]))
+    d_score = max(abs(g - c) for (_, g), (_, c) in zip(gpu["val_history"], cpu["val_history"]))
+    print(f"[options] {tag}: {len(gpu['steps'])} steps, epochs "
+          f"{[e for e, _ in gpu['val_history']]}, best epoch {gpu['best_epoch']} (CPU "
+          f"{cpu['best_epoch']}); GPU vs CPU max rel loss {d_loss:.2e} (limit {STEP_LOSS_RTOL}), "
+          f"grad_norm {d_norm:.2e} (limit {STEP_GRAD_NORM_RTOL}), score {d_score:.2e} dB "
+          f"(limit {SCORE_ATOL_DB}); launches {gpu['counts']}")
+    if d_loss > STEP_LOSS_RTOL or d_norm > STEP_GRAD_NORM_RTOL or d_score > SCORE_ATOL_DB \
+            or gpu["best_epoch"] != cpu["best_epoch"]:
+        raise AssertionError(f"[options] {tag}: the card's run and the CPU's disagree")
+
+
+def phase_options(card: str, tmp: str) -> dict:
+    """Each option through cli.train on the card and on the CPU; returns the
+    card runs' kernel launches."""
+    from highresnet_tpu_torch.data import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    root = make_synthetic_dataset(
+        os.path.join(tmp, "options_data"), n_scenes_per_channel=OPTIONS["scenes_per_channel"],
+        n_views=OPTIONS["views"], lr_size=OPTIONS["size"], seed=0, splits=("train",),
+        hr_shift_sigma=OPTIONS["hr_shift_sigma"], write_norm_csv=False)
+    views = OPTIONS_CONFIG["training"]["min_L"]
+    summed = dict.fromkeys(("pack", "unpack", "lanczos", "pack_dma"), 0)
+
+    def both(tag: str, name: str, **training) -> dict:
+        runs = {d: options_run(tmp, root, name, d, **training) for d in ("cuda", "cpu")}
+        want = options_want(runs["cuda"], views)
+        if runs["cuda"]["counts"] != want:
+            raise AssertionError(f"[options] {tag}: kernel launches {runs['cuda']['counts']} "
+                                 f"!= {want}")
+        for k in summed:
+            summed[k] += runs["cuda"]["counts"][k]
+        options_parity(tag, runs["cuda"], runs["cpu"])
+        return runs
+
+    uncached = both("cache_val_batches false", "uncached_val", cache_val_batches=False)
+    cpu = uncached["cpu"]
+    clip = statistics.median(s["grad_norm"] for s in cpu["steps"][:cpu["epochs"][0]["steps"]])
+    clipped = both(f"grad_clip_norm {clip:.6g} (the CPU's median first-epoch grad_norm)",
+                   "grad_clip", grad_clip_norm=clip)
+    for device, run in clipped.items():
+        norms = [s["grad_norm"] for s in run["steps"]]
+        if not (any(n >= clip for n in norms) and any(n < clip for n in norms)):
+            raise AssertionError(f"[options] grad_clip_norm {clip} binds on all steps or none "
+                                 f"on {device}: {norms}")
+    both(f"val_views {OPTIONS['val_views']}", "val_views", val_views=OPTIONS["val_views"])
+    # lr 0: the val score never improves after epoch 1, so the run stops at
+    # 1 + patience; relaunched with more epochs it runs one epoch and stops
+    stop = dict(lr=0.0, early_stop_patience=OPTIONS["patience"])
+    for tag, epochs, last, ran in (("early_stop_patience", OPTIONS["stop_epochs"], 2, 2),
+                                   ("early_stop relaunch", OPTIONS["relaunch_epochs"], 3, 1)):
+        runs = both(f"{tag} {OPTIONS['patience']} at lr 0, num_epochs {epochs}", "early_stop",
+                    num_epochs=epochs, **stop)
+        for device, run in runs.items():
+            got = (run["val_history"][-1][0], len(run["epochs"]), run["best_epoch"])
+            if got != (last, ran, 1):
+                raise AssertionError(f"[options] {tag} on {device}: (last epoch, epochs run, "
+                                     f"best epoch) {got} != {(last, ran, 1)}")
+    wall = time.perf_counter() - t0
+    print(f"[options] launches {summed}; phase wall {wall:.1f} s (limit "
+          f"{OPTIONS_PHASE_LIMIT_S} s); {card}")
+    if wall > OPTIONS_PHASE_LIMIT_S:
+        raise AssertionError(f"[options] the phase took {wall:.1f} s")
     return summed
 
 
@@ -2684,6 +2893,7 @@ def main() -> None:
         phase_train_step(card, tmp)
         distributed, oracle_data2, floor_data2 = phase_dist(card, tmp)
         viewed = phase_view(card, tmp, oracle_data2, floor_data2)
+        optioned = phase_options(card, tmp)
     dma = phase_dma(fusion, fusion_dma, card)
     measured["pack"].update(dma["pack"])
     measured["pack_dma"] = dma["pack_dma"]
@@ -2716,8 +2926,9 @@ def main() -> None:
         "route": "cuda",
         "source": f"highresnet_tpu_torch/csrc/{src}",
         "replaces": replaces,
-        "launches": (predicted[key] + trained[key] + distributed[key] + viewed[key] + lab[key]
-                     + flagship[key] + examples[key] + benched[key] + labs[key]),
+        "launches": (predicted[key] + trained[key] + distributed[key] + viewed[key]
+                     + optioned[key] + lab[key] + flagship[key] + examples[key] + benched[key]
+                     + labs[key]),
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
     print(card)

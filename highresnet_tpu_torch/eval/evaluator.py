@@ -47,6 +47,7 @@ from highresnet_tpu_torch.ops.resize import resize_cubic
 from highresnet_tpu_torch.registration.search import pcc_align_batch
 from highresnet_tpu_torch.runtime import compute_dtypes, resolve_device
 from highresnet_tpu_torch.train.checkpoint import SHIFTNET_FILE
+from highresnet_tpu_torch.utils.profiling import span
 
 
 def load_data(config_file_path: str, val_proportion: float = 0.10, top_k: int = -1):
@@ -69,24 +70,27 @@ def load_data(config_file_path: str, val_proportion: float = 0.10, top_k: int = 
 
 def _device_batch(lrs, alphas, device: torch.device):
     """(lrs, alphas), arrays or tensors, as float32 tensors on ``device``."""
-    return (torch.as_tensor(lrs, dtype=torch.float32, device=device),
-            torch.as_tensor(alphas, dtype=torch.float32, device=device))
+    with span("serve.to_device"):
+        return (torch.as_tensor(lrs, dtype=torch.float32, device=device),
+                torch.as_tensor(alphas, dtype=torch.float32, device=device))
 
 
 def _out(sr: torch.Tensor, host: bool):
-    return sr.cpu().numpy() if host else sr
+    with span("serve.to_host"):
+        return sr.cpu().numpy() if host else sr
 
 
 def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> torch.Tensor:
     """Mean of (B, H, W) SR outputs, each first PCC-aligned to ``srs[0]``
     with ``register``: one alignment call (one K3 launch on CUDA) over
     the (K-1)·B non-anchor images. K3 takes float32, so each SR is cast."""
-    srs = [sr.to(torch.float32) for sr in srs]
-    if register and len(srs) > 1:
-        anchor = srs[0]
-        aligned, _ = pcc_align_batch(anchor.repeat(len(srs) - 1, 1, 1), torch.cat(srs[1:]))
-        srs = [anchor, *aligned.split(anchor.shape[0])]
-    return torch.stack(srs).mean(dim=0)
+    with span("serve.align"):
+        srs = [sr.to(torch.float32) for sr in srs]
+        if register and len(srs) > 1:
+            anchor = srs[0]
+            aligned, _ = pcc_align_batch(anchor.repeat(len(srs) - 1, 1, 1), torch.cat(srs[1:]))
+            srs = [anchor, *aligned.split(anchor.shape[0])]
+        return torch.stack(srs).mean(dim=0)
 
 
 class _Forward:
@@ -98,6 +102,7 @@ class _Forward:
         self.device = device
         self.host = host
 
+    @span("serve.call")
     def __call__(self, lrs, alphas):
         with torch.inference_mode():
             return _out(self.model(*_device_batch(lrs, alphas, self.device)), self.host)
@@ -117,11 +122,15 @@ class _EnsembleForward:
         self.register = register
         self.host = host
 
+    @span("serve.call")
     def __call__(self, lrs, alphas):
         with torch.inference_mode():
             x, a = _device_batch(lrs, alphas, self.device)
-            return _out(_register_and_average([m(x, a) for m in self.models], self.register),
-                        self.host)
+            srs = []
+            for m in self.models:
+                with span("serve.transform"):
+                    srs.append(m(x, a))
+            return _out(_register_and_average(srs, self.register), self.host)
 
 
 class _TTAForward:
@@ -143,6 +152,7 @@ class _TTAForward:
         self.host = host
         self.elements = SAFE_SUBGROUP if transforms == 4 else tuple(range(8))
 
+    @span("serve.call")
     def __call__(self, lrs, alphas):
         if self.transforms == 8 and lrs.shape[-2] != lrs.shape[-1]:
             raise ValueError(
@@ -151,7 +161,10 @@ class _TTAForward:
             )
         with torch.inference_mode():
             x, a = _device_batch(lrs, alphas, self.device)
-            srs = [dihedral_inv(self.model(dihedral_fwd(x, t), a), t) for t in self.elements]
+            srs = []
+            for t in self.elements:
+                with span("serve.transform"):
+                    srs.append(dihedral_inv(self.model(dihedral_fwd(x, t), a), t))
             return _out(_register_and_average(srs, self.register), self.host)
 
 
@@ -215,35 +228,38 @@ def get_sr_and_score(
     "bicubic" returns JAX's 3x cubic resize of the clearest view instead,
     "model" runs the model silently.
     """
-    batch = collate([imset], min_l) if isinstance(imset, ImageSet) else imset
-    device = getattr(forward, "device", torch.device("cpu"))
-    n_real_views = float(np.sum(np.asarray(batch.alphas[0])))
-    if n_real_views <= 1.0 and single_view_policy != "model":
-        if single_view_policy == "bicubic":
-            # the clearest view (read_imageset orders views by clearance)
-            lr = torch.from_numpy(np.asarray(batch.lrs[0, 0], np.float32)).to(device)
-            with torch.inference_mode():
-                sr_t = resize_cubic(lr, (3 * lr.shape[0], 3 * lr.shape[1]))
-                score = None if batch.hrs is None else _score(sr_t, batch)
-            return sr_t.cpu().numpy(), score
-        warnings.warn(
-            "single-view scene: multi-frame fusion measures below plain "
-            "bicubic at L=1 (paper Fig. 1). Set training.single_view_policy="
-            "'model' to silence this.",
-            RuntimeWarning,
-            stacklevel=3,
-        )
-    sr = forward(batch.lrs, batch.alphas)[0]
-    warn_out_of_range(sr, name=batch.names[0] if batch.names else "")
-    score = None
-    if batch.hrs is not None:
-        with torch.inference_mode():
-            sr_t = torch.from_numpy(sr).to(device)
-            if registration is not None:
-                hr = torch.from_numpy(batch.hrs[0]).to(device)
-                sr_t = register_sr(registration, sr_t, hr, register_size)
-            score = _score(sr_t, batch)
-    return sr, score
+    with span("serve.scene"):
+        with span("serve.collate"):
+            batch = collate([imset], min_l) if isinstance(imset, ImageSet) else imset
+        device = getattr(forward, "device", torch.device("cpu"))
+        n_real_views = float(np.sum(np.asarray(batch.alphas[0])))
+        if n_real_views <= 1.0 and single_view_policy != "model":
+            if single_view_policy == "bicubic":
+                # the clearest view (read_imageset orders views by clearance)
+                lr = torch.from_numpy(np.asarray(batch.lrs[0, 0], np.float32)).to(device)
+                with torch.inference_mode():
+                    sr_t = resize_cubic(lr, (3 * lr.shape[0], 3 * lr.shape[1]))
+                    score = None if batch.hrs is None else _score(sr_t, batch)
+                return sr_t.cpu().numpy(), score
+            warnings.warn(
+                "single-view scene: multi-frame fusion measures below plain "
+                "bicubic at L=1 (paper Fig. 1). Set training.single_view_policy="
+                "'model' to silence this.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        sr = forward(batch.lrs, batch.alphas)[0]
+        with span("serve.range_check"):
+            warn_out_of_range(sr, name=batch.names[0] if batch.names else "")
+            score = None
+            if batch.hrs is not None:
+                with torch.inference_mode():
+                    sr_t = torch.from_numpy(sr).to(device)
+                    if registration is not None:
+                        hr = torch.from_numpy(batch.hrs[0]).to(device)
+                        sr_t = register_sr(registration, sr_t, hr, register_size)
+                    score = _score(sr_t, batch)
+        return sr, score
 
 
 def build_model(config: Mapping[str, Any], device) -> HRNet:

@@ -42,6 +42,7 @@ from torch import nn
 from highresnet_tpu_torch.models.layers import Conv2d, ConvTranspose2d, PReLU, lecun_normal_
 from highresnet_tpu_torch.ops.fusion import pack_pairs, pack_pairs_ref
 from highresnet_tpu_torch.parallel.distributed import gather_views, process_count, process_index
+from highresnet_tpu_torch.utils.profiling import span
 
 
 def lower_median(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -120,29 +121,30 @@ class FusionNet(nn.Module):
         m = process_count(view_group) if view_group is not None else 1
         sharded = m > 1
         while nviews // 2 > 0:
-            half = nviews // 2
-            if sharded and half % m:  # this round and the rest run replicated
-                x, sharded = gather_views(x, view_group), False
-            if sharded:
-                x = gather_views(x, view_group)
-                v = process_index(view_group)
-                j0, j1 = v * half // m, (v + 1) * half // m
-                bob = slice(2 * half - j1, 2 * half - j0)
-                alice = x[:, j0:j1]
-                pair = pack(torch.cat([alice, x[:, bob]], dim=1))
-            else:
-                bob = slice(half, 2 * half)
-                alice = x[:, :half]
-                pair = pack(x)  # (B, half, 2C, H, W)
-            n = pair.shape[1]
-            fused = self.fuse(pair.reshape(b * n, 2 * c, h, w)).reshape(b, n, c, h, w)
-            if self.alpha_residual:
-                a_bob = torch.flip(alphas[:, bob], dims=(1,))
-                x = alice + a_bob * fused
-                alphas = alphas[:, :half]
-            else:
-                x = fused
-            nviews = half
+            with span("hrnet.fuse.round"):
+                half = nviews // 2
+                if sharded and half % m:  # this round and the rest run replicated
+                    x, sharded = gather_views(x, view_group), False
+                if sharded:
+                    x = gather_views(x, view_group)
+                    v = process_index(view_group)
+                    j0, j1 = v * half // m, (v + 1) * half // m
+                    bob = slice(2 * half - j1, 2 * half - j0)
+                    alice = x[:, j0:j1]
+                    pair = pack(torch.cat([alice, x[:, bob]], dim=1))
+                else:
+                    bob = slice(half, 2 * half)
+                    alice = x[:, :half]
+                    pair = pack(x)  # (B, half, 2C, H, W)
+                n = pair.shape[1]
+                fused = self.fuse(pair.reshape(b * n, 2 * c, h, w)).reshape(b, n, c, h, w)
+                if self.alpha_residual:
+                    a_bob = torch.flip(alphas[:, bob], dims=(1,))
+                    x = alice + a_bob * fused
+                    alphas = alphas[:, :half]
+                else:
+                    x = fused
+                nviews = half
         return x.mean(dim=1)  # (B, C, H, W)
 
 
@@ -236,21 +238,24 @@ class HRNet(nn.Module):
 
     def forward(self, lrs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
         b, l, h, w = lrs.shape
-        refs = lower_median(lrs[:, : min(9, l)], dim=1)  # (B, H, W)
         group = self.view_group if self.training else None
-        if group is not None:  # this rank's block of views
-            m, v = process_count(group), process_index(group)
-            if l % m:
-                raise ValueError(f"the batch's {l} views do not divide over view={m}")
-            lrs = lrs[:, v * l // m:(v + 1) * l // m]
-        k = lrs.shape[1]
-        refs = refs[:, None].expand(b, k, h, w)
-        x = torch.stack([lrs, refs], dim=2).to(self.dtype)  # (B, k, 2, H, W)
-        states = self.encode(x.reshape(b * k, 2, h, w))
-        states = states.reshape(b, k, *states.shape[1:])
-        fused = self.fuse(states, alphas.to(states.dtype), group)  # (B, C, H, W)
-        sr = self.decode(fused.to(self.decoder_dtype))  # (B, 1, 3H, 3W)
-        return sr[:, 0].to(torch.float32)
+        with span("hrnet.encode"):
+            refs = lower_median(lrs[:, : min(9, l)], dim=1)  # (B, H, W)
+            if group is not None:  # this rank's block of views
+                m, v = process_count(group), process_index(group)
+                if l % m:
+                    raise ValueError(f"the batch's {l} views do not divide over view={m}")
+                lrs = lrs[:, v * l // m:(v + 1) * l // m]
+            k = lrs.shape[1]
+            refs = refs[:, None].expand(b, k, h, w)
+            x = torch.stack([lrs, refs], dim=2).to(self.dtype)  # (B, k, 2, H, W)
+            states = self.encode(x.reshape(b * k, 2, h, w))
+            states = states.reshape(b, k, *states.shape[1:])
+        with span("hrnet.fuse"):
+            fused = self.fuse(states, alphas.to(states.dtype), group)  # (B, C, H, W)
+        with span("hrnet.decode"):
+            sr = self.decode(fused.to(self.decoder_dtype))  # (B, 1, 3H, 3W)
+            return sr[:, 0].to(torch.float32)
 
 
 def param_count(model: nn.Module) -> int:

@@ -16,6 +16,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from highresnet_tpu_torch.utils.profiling import span
+
+
 def warp_window_px(t: Dict[str, Any]) -> float:
     """Accurate range of the loss-time Lanczos warp: ±3 px for the single
     7-tap pass, ±(K + 0.5) px with training.warp_int_range = K."""
@@ -72,25 +75,31 @@ def run_train_epoch(
     n_seen = 0
     n_steps = 0
     t0 = time.time()
-    for batch in loader:
-        state, m = step_fn(state, *batch_to_device(batch, device))
-        n = len(batch.names) * replicas  # equal shards (drop_last)
-        contrib = torch.stack([m["loss"] * n, m["mean_abs_shift"], m["grad_norm"]])
-        sums = contrib if sums is None else sums + contrib
-        peak = m["max_abs_shift"] if peak is None else torch.maximum(peak, m["max_abs_shift"])
-        n_seen += n
-        n_steps += 1
-        if steps_left is not None and n_steps >= steps_left:
-            break
-    if n_seen:
-        host = torch.cat([sums, peak[None]]).tolist()  # one host sync per epoch
-        stats = {
-            "train_loss": host[0] / n_seen,
-            "mean_abs_shift": host[1] / n_steps,
-            "grad_norm": host[2] / n_steps,
-            "max_abs_shift": host[3],
-        }
-    else:
-        stats = {k: 0.0 for k in ("train_loss", "mean_abs_shift", "grad_norm", "max_abs_shift")}
+    with span("train.epoch"):
+        for batch in loader:
+            with span("train.feed"):
+                arrays = batch_to_device(batch, device)
+            with span("train.step"):
+                state, m = step_fn(state, *arrays)
+            n = len(batch.names) * replicas  # equal shards (drop_last)
+            contrib = torch.stack([m["loss"] * n, m["mean_abs_shift"], m["grad_norm"]])
+            sums = contrib if sums is None else sums + contrib
+            peak = m["max_abs_shift"] if peak is None else torch.maximum(peak, m["max_abs_shift"])
+            n_seen += n
+            n_steps += 1
+            if steps_left is not None and n_steps >= steps_left:
+                break
+        if n_seen:
+            with span("train.readback"):
+                host = torch.cat([sums, peak[None]]).tolist()  # one host sync per epoch
+            stats = {
+                "train_loss": host[0] / n_seen,
+                "mean_abs_shift": host[1] / n_steps,
+                "grad_norm": host[2] / n_steps,
+                "max_abs_shift": host[3],
+            }
+        else:
+            stats = {k: 0.0 for k in ("train_loss", "mean_abs_shift", "grad_norm",
+                                      "max_abs_shift")}
     stats["seconds"] = time.time() - t0
     return state, stats, n_steps

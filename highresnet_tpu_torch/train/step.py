@@ -50,6 +50,7 @@ from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
 from highresnet_tpu_torch.parallel import distributed
 from highresnet_tpu_torch.parallel.mesh import DataParallel
 from highresnet_tpu_torch.train.state import TrainState, clip_by_global_norm_, global_norm
+from highresnet_tpu_torch.utils.profiling import span
 
 REGISTER_SIZE = 128  # default ShiftNet input crop (the reference's fc geometry)
 
@@ -108,22 +109,25 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
     masks: Dict[torch.device, torch.Tensor] = {}
 
     def loss_fn(state: TrainState, lrs, alphas, hrs, hr_maps):
-        srs = state.hrnet(lrs, alphas)
+        with span("train.step.forward"):
+            srs = state.hrnet(lrs, alphas)
         if register:
-            warped, thetas = register_and_warp(
-                state.shiftnet, srs, hrs, offset, state.generator, register_size,
-                use_pallas_warp, warp_int_range,
-            )
+            with span("train.step.register"):
+                warped, thetas = register_and_warp(
+                    state.shiftnet, srs, hrs, offset, state.generator, register_size,
+                    use_pallas_warp, warp_int_range,
+                )
         else:  # unregistered arm: raw SR vs HR, no shift penalty term
             warped, thetas = srs, srs.new_zeros((srs.shape[0], 2))
-        if hrs.device not in masks:
-            masks[hrs.device] = border_mask.to(hrs.device)
-        mask = masks[hrs.device][None] * hr_maps
-        mean = (lambda x: global_mean(x, data_group)) if synced else torch.mean
-        loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric, mean=mean)
-        if range_penalty > 0:
-            overflow = F.relu(srs - 1.0) + F.relu(-srs)
-            loss = loss + range_penalty * torch.mean(overflow.float())
+        with span("train.step.loss"):
+            if hrs.device not in masks:
+                masks[hrs.device] = border_mask.to(hrs.device)
+            mask = masks[hrs.device][None] * hr_maps
+            mean = (lambda x: global_mean(x, data_group)) if synced else torch.mean
+            loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric, mean=mean)
+            if range_penalty > 0:
+                overflow = F.relu(srs - 1.0) + F.relu(-srs)
+                loss = loss + range_penalty * torch.mean(overflow.float())
         return loss, thetas
 
     def step(state: TrainState, lrs, alphas, hrs, hr_maps):
@@ -135,21 +139,25 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
         # every parameter gets a gradient, zero where unused (the unregistered
         # arm's ShiftNet), so Adam's moments and step count advance for all
         # of them, as optax's do
-        state.optimizer.zero_grad(set_to_none=False)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with span("train.step.zero_grad"):
+            state.optimizer.zero_grad(set_to_none=False)
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         loss, thetas = loss_fn(state, lrs, alphas, hrs, hr_maps)
-        loss.backward()
+        with span("train.step.backward"):
+            loss.backward()
         grads = [p.grad for p in params]
         if synced:
             distributed.reduce_gradients_(grads)
-        grad_norm = global_norm(grads)
-        if state.grad_clip_norm > 0:
-            clip_by_global_norm_(grads, state.grad_clip_norm, grad_norm)
-        state.optimizer.step()
+        with span("train.step.clip"):
+            grad_norm = global_norm(grads)
+            if state.grad_clip_norm > 0:
+                clip_by_global_norm_(grads, state.grad_clip_norm, grad_norm)
+        with span("train.step.optimizer"):
+            state.optimizer.step()
         if ema_decay > 0:
-            with torch.no_grad():
+            with span("train.step.ema"), torch.no_grad():
                 for name, model in (("hrnet", state.hrnet), ("shiftnet", state.shiftnet)):
                     ema = state.ema[name]
                     for k, p in model.named_parameters():

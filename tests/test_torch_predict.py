@@ -155,8 +155,7 @@ def test_port_leaves_jax_unimported():
 
 def test_port_sources_have_no_jax_and_no_torch_compile():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b|torch\.compile", re.M)
-    scripts = [REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("profile_torch_*.py"))]
-    files = sorted((REPO / "highresnet_tpu_torch").rglob("*.py")) + scripts
+    files = sorted((REPO / "highresnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for module in ("train/loop.py", "train/step.py", "ops/lanczos_fused.py", "cli/train.py",
                    *(m.replace(".", "/") + ".py" for m in NEW_MODULES)):
         assert REPO / "highresnet_tpu_torch" / module in files, module

@@ -8,7 +8,10 @@ EMA of the parameters started at init.
 
 Where the JAX state is an immutable pytree replaced each step, this one
 holds the models and updates them in place; ``with_learning_rate`` sets
-the lr and returns the same state.
+the lr and returns the same state. On a card Adam is ``capturable``: its
+lr is a device tensor that ``with_learning_rate`` writes in stream order
+and its step counts live on the device, so the train step's CUDA graphs
+(``train/graphs.py``) read every lr change. On the CPU the lr is a float.
 """
 
 from __future__ import annotations
@@ -28,9 +31,14 @@ ADAM_EPS = 1e-8
 Params = Dict[str, Dict[str, torch.Tensor]]  # {"hrnet": {name: tensor}, "shiftnet": ...}
 
 
-def make_optimizer(params: List[torch.nn.Parameter], lr: float) -> torch.optim.Adam:
-    """Adam with optax.adam's constants (b1 0.9, b2 0.999, eps 1e-8, eps_root 0)."""
-    return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+def make_optimizer(params: List[torch.nn.Parameter], lr: float,
+                   capturable: bool = False) -> torch.optim.Adam:
+    """Adam with optax.adam's constants (b1 0.9, b2 0.999, eps 1e-8, eps_root 0);
+    ``capturable``: the lr a float32 tensor on the parameters' device and
+    the bias corrections computed there, so a CUDA graph may hold the update."""
+    if capturable:
+        lr = torch.tensor(float(lr), device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS, capturable=capturable)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -80,11 +88,14 @@ class TrainState:
 
     @property
     def learning_rate(self) -> float:
-        return self.optimizer.param_groups[0]["lr"]
+        return float(self.optimizer.param_groups[0]["lr"])
 
     def with_learning_rate(self, lr: float) -> "TrainState":
         for group in self.optimizer.param_groups:
-            group["lr"] = float(lr)
+            if isinstance(group["lr"], torch.Tensor):  # capturable: the tensor a graph reads
+                group["lr"].fill_(float(lr))
+            else:
+                group["lr"] = float(lr)
         return self
 
     def state_dict(self) -> Dict[str, Any]:
@@ -106,7 +117,14 @@ class TrainState:
             )
         self.hrnet.load_state_dict(sd["hrnet"])
         self.shiftnet.load_state_dict(sd["shiftnet"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        # the checkpoint's lr and capturable flag may come from a run on another
+        # device: keep this optimizer's own (its lr tensor is what a graph reads)
+        saved, own = sd["optimizer"], self.optimizer.param_groups
+        self.optimizer.load_state_dict({**saved, "param_groups": [
+            {**g, "capturable": mine["capturable"]} for g, mine in zip(saved["param_groups"], own)]})
+        for group, mine in zip(self.optimizer.param_groups, own):
+            group["lr"] = mine["lr"]
+        self.with_learning_rate(saved["param_groups"][0]["lr"])
         self.generator.set_state(sd["generator"])
         self.step = int(sd["step"])
         if self.ema is not None:
@@ -140,7 +158,7 @@ def create_train_state(
     return TrainState(
         hrnet=hrnet,
         shiftnet=shiftnet,
-        optimizer=make_optimizer(params, t["lr"]),
+        optimizer=make_optimizer(params, t["lr"], capturable=device.type == "cuda"),
         generator=torch.Generator(device=device).manual_seed(dropout_seed),
         grad_clip_norm=float(t.get("grad_clip_norm", 0.0) or 0.0),
         ema=ema,

@@ -14,7 +14,10 @@ The counterpart of ``highresnet_tpu/train/step.py`` (no mesh):
 
 The step updates the state in place and returns its metrics as device
 tensors (no host sync): ``loss``, ``mean_abs_shift``, ``max_abs_shift``
-and ``grad_norm`` (of the gradients before any clipping).
+and ``grad_norm`` (of the gradients before any clipping). Each step's
+tensors are its own: a later step does not overwrite them. On a card the
+step runs as three CUDA graphs from the second step of each input shape
+on (``train/graphs.py``); the CPU and a synced step run eagerly.
 
 A synced ``layout`` (``parallel/mesh.py::DataParallel``) builds the step of
 one process of a multi-process run, on its replica's shard of the global
@@ -49,6 +52,7 @@ from highresnet_tpu_torch.ops.losses import LOSS_METRICS, crop_mask, registered_
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
 from highresnet_tpu_torch.parallel import distributed
 from highresnet_tpu_torch.parallel.mesh import DataParallel
+from highresnet_tpu_torch.train.graphs import GraphedStep, eligible, step_key
 from highresnet_tpu_torch.train.state import TrainState, clip_by_global_norm_, global_norm
 from highresnet_tpu_torch.utils.profiling import span
 
@@ -130,12 +134,9 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
                 loss = loss + range_penalty * torch.mean(overflow.float())
         return loss, thetas
 
-    def step(state: TrainState, lrs, alphas, hrs, hr_maps):
-        state.hrnet.train()
-        state.shiftnet.train()
-        state.hrnet.shard_views(view_group)
-        state.shiftnet.sync_batch(synced, data_group)
-        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    graphed = GraphedStep()
+
+    def zero_grads(state: TrainState, params) -> None:
         # every parameter gets a gradient, zero where unused (the unregistered
         # arm's ShiftNet), so Adam's moments and step count advance for all
         # of them, as optax's do
@@ -144,6 +145,8 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+
+    def forward_to_clip(state: TrainState, params, lrs, alphas, hrs, hr_maps):
         loss, thetas = loss_fn(state, lrs, alphas, hrs, hr_maps)
         with span("train.step.backward"):
             loss.backward()
@@ -154,6 +157,19 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
             grad_norm = global_norm(grads)
             if state.grad_clip_norm > 0:
                 clip_by_global_norm_(grads, state.grad_clip_norm, grad_norm)
+        thetas = thetas.detach()
+        loss, mean_abs, max_abs = loss.detach(), thetas.abs().mean(), thetas.abs().max()
+        if synced:
+            loss, mean_abs = distributed.all_reduce_mean(torch.stack([loss, mean_abs]), data_group)
+            max_abs = distributed.all_reduce_max(max_abs, data_group)
+        return {
+            "loss": loss,
+            "mean_abs_shift": mean_abs,
+            "max_abs_shift": max_abs,
+            "grad_norm": grad_norm.detach(),
+        }
+
+    def update(state: TrainState) -> None:
         with span("train.step.optimizer"):
             state.optimizer.step()
         if ema_decay > 0:
@@ -162,20 +178,30 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
                     ema = state.ema[name]
                     for k, p in model.named_parameters():
                         ema[k].add_((p - ema[k]) * (1.0 - ema_decay))
-        state.step += 1
-        thetas = thetas.detach()
-        loss, mean_abs, max_abs = loss.detach(), thetas.abs().mean(), thetas.abs().max()
-        if synced:
-            loss, mean_abs = distributed.all_reduce_mean(torch.stack([loss, mean_abs]), data_group)
-            max_abs = distributed.all_reduce_max(max_abs, data_group)
-        metrics = {
-            "loss": loss,
-            "mean_abs_shift": mean_abs,
-            "max_abs_shift": max_abs,
-            "grad_norm": grad_norm.detach(),
-        }
-        return state, metrics
 
+    def step(state: TrainState, lrs, alphas, hrs, hr_maps):
+        state.hrnet.train()
+        state.shiftnet.train()
+        state.hrnet.shard_views(view_group)
+        state.shiftnet.sync_batch(synced, data_group)
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        batch = (lrs, alphas, hrs, hr_maps)
+        metrics = None
+        if eligible(lrs.device, synced):  # through CUDA graphs (train/graphs.py)
+            mode = (state.grad_clip_norm, state.shiftnet.dropout)
+            warm = (len(state.optimizer.state) == len(params)
+                    and all(p.grad is not None for p in params))
+            metrics = graphed(
+                step_key(batch, mode, state.generator), warm,
+                (state.optimizer.state, *params, *(p.grad for p in params)),
+                batch, state.generator, lambda: zero_grads(state, params),
+                lambda *b: forward_to_clip(state, params, *b), lambda: update(state))
+        if metrics is None:
+            zero_grads(state, params)
+            metrics = forward_to_clip(state, params, *batch)
+            update(state)
+        state.step += 1
+        return state, metrics
     return step
 
 

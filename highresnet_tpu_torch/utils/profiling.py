@@ -27,8 +27,9 @@ oldest go first): its name, id, the id of the span open around it
 (``parent``) and of the outermost one (``root``: the spans of one scene or
 one epoch share it), host start and end on ``time.perf_counter_ns`` and,
 once CUDA is in use, two timing events recorded on the current stream at
-entry and exit. Nothing in a span waits for the card; ``spans()`` does, when
-it resolves the events. The spans, by layer:
+entry and exit (none while that stream is being captured into a CUDA graph:
+such a span has host time alone). Nothing in a span waits for the card;
+``spans()`` does, when it resolves the events. The spans, by layer:
 
 - serving entry (``eval/evaluator.py``): ``serve.scene`` (one scene through
   ``get_sr_and_score``), ``serve.collate``, ``serve.call`` (a forward's
@@ -43,7 +44,9 @@ it resolves the events. The spans, by layer:
   epoch's one read of its metrics);
 - train step (``train/step.py``): ``train.step.zero_grad``, ``.forward``,
   ``.register``, ``.loss``, ``.backward``, ``.clip``, ``.optimizer``,
-  ``.ema``.
+  ``.ema``; with CUDA graphs (``train/graphs.py``) ``train.step.capture``
+  (one graph's capture) and ``train.step.replay`` (one graph's replay), and
+  a replayed step opens only ``.zero_grad`` and ``.optimizer`` of the rest.
 """
 
 from __future__ import annotations
@@ -188,7 +191,7 @@ class _Span(_NoSpan):
         rec.end_ns = rec.device_ms = rec.events = None
         self.annotation = torch.profiler.record_function(self.name)
         self.annotation.__enter__()
-        if torch.cuda.is_initialized():
+        if torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
             rec.events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             rec.events[0].record()

@@ -1,4 +1,4 @@
-"""Evaluate HRNet weights and/or produce a Kelvin submission archive.
+"""Evaluate HRNet (or RAMS) weights and/or produce a Kelvin submission archive.
 
 Usage:
     python -m highresnet_tpu_torch.cli.predict --config configs/config.json \
@@ -6,7 +6,9 @@ Usage:
         [--tta 4|8] [--registered] [--no-ensemble-registration] [--device cuda] \
         [--submission out_dir] [--splits val test]
 
-The flags of ``highresnet_tpu.cli.predict`` plus ``--device``. A JAX run
+The flags of ``highresnet_tpu.cli.predict`` plus ``--device``. Under
+``network.arch: "rams"`` the checkpoint is ``RAMS.pth``, served plain (no
+``--tta``, ``--registered`` or ensembles). A JAX run
 directory (Orbax ``best/``) gets its ``HRNet.pth`` and, for
 ``--registered``, its ``ShiftNet.pth`` from ``scripts/export_torch_weights.py``.
 """

@@ -1,4 +1,4 @@
-"""Train HRNet + ShiftNet for multi-frame super-resolution.
+"""Train HRNet + ShiftNet, or RAMS, for multi-frame super-resolution.
 
 Usage:
     python -m highresnet_tpu_torch.cli.train --config configs/config.json \
@@ -7,7 +7,9 @@ Usage:
 The same flags as ``highresnet_tpu.cli.train`` plus ``--device``: --run-dir
 creates or resumes a run directory, --max-steps stops after N optimizer
 steps. The run directory's ``best/HRNet.pth`` serves through
-``highresnet_tpu_torch.cli.predict --checkpoint <run dir>``.
+``highresnet_tpu_torch.cli.predict --checkpoint <run dir>``; under
+``network.arch: "rams"`` (``configs/rams.json``) the run trains RAMS alone
+with its cL1 loss and keeps ``best/RAMS.pth``.
 
 Data parallelism runs one process per card, each on its shard of the
 global batch ``training.batch_size`` (which the world size must divide):

@@ -6,6 +6,13 @@ The port's own copy of ``highresnet_tpu/config.py``, imports pointed at
 Public-API compatibility: configs/config.json here mirrors the key layout
 of the reference's config/config.json (paths / network / training) so
 existing configs drop in unchanged (BASELINE.json requires API compat).
+
+``network.arch`` names the SR network: ``"hrnet"`` (the default, whose
+settings are ``DEFAULT_CONFIG``'s network section) or ``"rams"``
+(``models/rams.py``), whose settings are ``network.rams`` over
+``RAMS_DEFAULTS``. Neither key is in ``DEFAULT_CONFIG``, which stays the
+JAX package's. An ``assumed`` list in a section documents the values of a
+configuration that its published source does not confirm.
 """
 
 from __future__ import annotations
@@ -145,6 +152,33 @@ DEFAULT_CONFIG: Dict[str, Any] = {
         "epoch_cache_variants": 0,
     },
 }
+
+
+ARCHS = ("hrnet", "rams")
+
+# RAMS's published widths (Salvetti et al. 2020): filters F, kernel k, frames
+# T, the attention gates' reduction r, residual feature-attention blocks N
+RAMS_DEFAULTS: Dict[str, Any] = {
+    "filters": 32,
+    "kernel_size": 3,
+    "views": 9,
+    "reduction": 8,
+    "blocks": 12,
+    "scale": 3,
+}
+
+
+def network_arch(config: Dict[str, Any]) -> str:
+    """The SR network ``config`` names (``network.arch``, default "hrnet")."""
+    arch = config["network"].get("arch", "hrnet")
+    if arch not in ARCHS:
+        raise ValueError(f"network.arch must be one of {ARCHS}, got {arch!r}")
+    return arch
+
+
+def rams_settings(network: Dict[str, Any]) -> Dict[str, Any]:
+    """``network.rams`` over ``RAMS_DEFAULTS``."""
+    return {**RAMS_DEFAULTS, **network.get("rams", {})}
 
 
 # Registration-toolkit config (the reference's root config.json schema:

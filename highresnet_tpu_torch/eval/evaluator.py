@@ -11,6 +11,11 @@ scoring; and the single-view bicubic route through JAX's cubic resize (``ops/res
 model's device: the SR forwards, the PCC alignment (its warp is the Lanczos
 kernel K3 on CUDA), the registered warp (K3) and the shift-search cPSNR.
 
+The SR network is the one ``network.arch`` names (``models/network.py``):
+HRNet, or RAMS, which serves plain (``load_checkpoint`` or ``set_params``,
+then ``forward`` or ``__call__``); TTA, ensembles and ShiftNet-registered
+scoring refuse it.
+
 Two faults of the JAX evaluator are not carried over (ROADMAP hazard H5):
 ``Model.set_params`` and ``Model.load_checkpoint_with_shiftnet`` honour
 ``training.compute_dtype``, and the submission writer honours
@@ -28,7 +33,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from highresnet_tpu_torch.config import load_config
+from highresnet_tpu_torch.config import load_config, network_arch
 from highresnet_tpu_torch.data import (
     Batch,
     ImageSet,
@@ -40,12 +45,13 @@ from highresnet_tpu_torch.data import (
 )
 from highresnet_tpu_torch.models.convert import load_weights
 from highresnet_tpu_torch.models.hrnet import HRNet
+from highresnet_tpu_torch.models.network import build_network, weights_file
 from highresnet_tpu_torch.models.shiftnet import ShiftNet, apply_shifts, register_views
 from highresnet_tpu_torch.ops.dihedral import SAFE_SUBGROUP, dihedral_fwd, dihedral_inv
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr
 from highresnet_tpu_torch.ops.resize import resize_cubic
 from highresnet_tpu_torch.registration.search import pcc_align_batch
-from highresnet_tpu_torch.runtime import compute_dtypes, resolve_device
+from highresnet_tpu_torch.runtime import resolve_device
 from highresnet_tpu_torch.train.checkpoint import SHIFTNET_FILE
 from highresnet_tpu_torch.utils.profiling import span
 
@@ -263,18 +269,19 @@ def get_sr_and_score(
 
 
 def build_model(config: Mapping[str, Any], device) -> HRNet:
-    """HRNet from ``config["network"]`` at ``training.compute_dtype``."""
-    dtype, decoder_dtype = compute_dtypes(config["training"].get("compute_dtype"))
-    return HRNet(config["network"], device=device, dtype=dtype, decoder_dtype=decoder_dtype)
+    """The SR network of ``config["network"]``: HRNet at
+    ``training.compute_dtype``, or RAMS under ``network.arch: "rams"``."""
+    return build_network(config, device)
 
 
 def load_model(config: Mapping[str, Any], checkpoint: str, device="cuda") -> HRNet:
-    """Build HRNet and load ``HRNet.pth`` (a file, or a directory holding it).
+    """Build the SR network and load its weights, ``HRNet.pth`` or
+    ``RAMS.pth`` (a file, or a directory holding it).
 
     A CUDA device that is missing raises before the checkpoint is read."""
     device = resolve_device(device)
     model = build_model(config, device)
-    model.load_state_dict(load_weights(checkpoint))
+    model.load_state_dict(load_weights(checkpoint, weights_file(config)))
     return model.eval()
 
 
@@ -336,7 +343,7 @@ class Model:
     def __init__(self, config: Dict[str, Any], device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
-        self.hrnet: Optional[HRNet] = None
+        self.hrnet: Optional[HRNet] = None  # the SR network (RAMS under network.arch "rams")
         self.forward = None  # _Forward, _EnsembleForward or _TTAForward
         self.registration: Optional[ShiftNet] = None  # load_checkpoint_with_shiftnet
 
@@ -344,8 +351,13 @@ class Model:
     def _training(self) -> Dict[str, Any]:
         return self.config["training"]
 
+    def _hrnet_only(self, what: str) -> None:
+        if network_arch(self.config) != "hrnet":
+            raise ValueError(f"{what} serves HRNet only; RAMS serves plain "
+                             "(load_checkpoint or set_params, then forward or __call__)")
+
     def load_checkpoint(self, checkpoint: str):
-        """Load ``HRNet.pth`` (a file, or a run directory holding it)."""
+        """Load ``HRNet.pth`` or ``RAMS.pth`` (a file, or a run directory holding it)."""
         self.hrnet = load_model(self.config, checkpoint, self.device)
         self.forward = _Forward(self.hrnet, self.device)
 
@@ -360,6 +372,7 @@ class Model:
         ``best/HRNet.pth`` at ``training.compute_dtype``, ShiftNet from
         ``best/ShiftNet.pth`` at ``register_size``, in eval mode. Takes a run
         directory of the port's cli.train or a directory holding both files."""
+        self._hrnet_only("ShiftNet-registered scoring")
         path = next((p for p in (os.path.join(checkpoint, SHIFTNET_FILE),
                                  os.path.join(checkpoint, "best", SHIFTNET_FILE))
                      if os.path.isfile(p)), None)
@@ -378,6 +391,7 @@ class Model:
         """Average the SR of several checkpoints (HighRes-net+). ``register``
         aligns every member to the first member's output frame before the
         mean (``_EnsembleForward``): list the strongest model first."""
+        self._hrnet_only("an ensemble")
         models = [load_model(self.config, c, self.device) for c in checkpoints]
         self.hrnet = models[-1]
         self.forward = _EnsembleForward(models, self.device, register=register)
@@ -386,6 +400,7 @@ class Model:
         """Wrap the loaded single-checkpoint forward in x4/x8 dihedral TTA
         (``_TTAForward``); call after load_checkpoint / set_params. Not
         available on an ensemble."""
+        self._hrnet_only("TTA")
         if not isinstance(self.forward, _Forward):
             raise ValueError(
                 "enable_tta requires a single-checkpoint forward "

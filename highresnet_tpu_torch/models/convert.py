@@ -95,18 +95,18 @@ def vgg_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     return out
 
 
-def load_weights(path_or_dir: str) -> Dict[str, torch.Tensor]:
-    """Read an HRNet.pth state dict onto the CPU; tensors only, no pickled
-    code. Takes the file, a directory holding it, or a run directory of the
-    port's ``cli.train``, which keeps it under ``best/``."""
+def load_weights(path_or_dir: str, name: str = WEIGHTS_NAME) -> Dict[str, torch.Tensor]:
+    """Read a state dict, ``name`` (HRNet.pth; RAMS.pth for RAMS), onto the
+    CPU; tensors only, no pickled code. Takes the file, a directory holding
+    it, or a run directory of the port's ``cli.train``, which keeps it under
+    ``best/``."""
     path = path_or_dir
     if os.path.isdir(path_or_dir):
-        candidates = [os.path.join(path_or_dir, WEIGHTS_NAME),
-                      os.path.join(path_or_dir, "best", WEIGHTS_NAME)]
+        candidates = [os.path.join(path_or_dir, name), os.path.join(path_or_dir, "best", name)]
         path = next((p for p in candidates if os.path.isfile(p)), None)
         if path is None:
             raise FileNotFoundError(
-                f"{path_or_dir} holds no {WEIGHTS_NAME} (nor best/{WEIGHTS_NAME}); for a "
+                f"{path_or_dir} holds no {name} (nor best/{name}); for a "
                 "JAX run directory (Orbax best/) make one with scripts/export_torch_weights.py"
             )
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -8,6 +8,13 @@ The counterpart of ``highresnet_tpu/ops/losses.py``:
   cPSNR  = -10 * log10(cMSE)
 
 Per-image functions take (..., H, W) and reduce the last two axes.
+
+``cl1_loss`` is RAMS's own criterion (Salvetti et al. 2020), a
+brightness-corrected masked L1 that searches the registration itself: the
+SR cropped by ``border`` px on each side against each of the
+(2·border + 1)² crops of the HR and its mask of that size, with the bias
+b = Σm(hr − sr) / Σm not detached, Σ|m·hr − m·(m·sr + b)| / Σm, and the
+minimum over the crops.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LOSS_METRICS = ("cPSNR", "cMSE", "masked_MSE")
+LOSS_METRICS = ("cPSNR", "cMSE", "masked_MSE")  # the registered criteria, as JAX's
+CL1 = "cL1"  # RAMS's criterion, taken apart from them
 
 
 def masked_mse_loss(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -59,6 +67,20 @@ def registered_loss(sr_shifted, hr, mask, shifts, lam: float, metric: str = "cPS
     if metric == "cPSNR":
         per_image = -per_image
     return torch.mean(per_image) + lam * torch.square(mean(shifts))
+
+
+def cl1_loss(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor, border: int = 3):
+    """Per-image cL1 of (B, H, W) SR, HR and mask (the module notes): the
+    minimum over the (2·border + 1)² shifts of the HR crop."""
+    h, w = sr.shape[-2] - 2 * border, sr.shape[-1] - 2 * border
+    sr = sr[..., None, None, border:border + h, border:border + w]
+    hr = hr.unfold(-2, h, 1).unfold(-2, w, 1)  # (B, shifts, shifts, h, w), views of the HR
+    mask = mask.unfold(-2, h, 1).unfold(-2, w, 1)
+    n = torch.sum(mask, dim=(-2, -1))
+    hr_m, sr_m = mask * hr, mask * sr
+    bias = torch.sum(hr_m - sr_m, dim=(-2, -1)) / n
+    l1 = torch.sum(torch.abs(hr_m - mask * (sr_m + bias[..., None, None])), dim=(-2, -1)) / n
+    return torch.amin(l1.flatten(-2), dim=-1)
 
 
 def crop_mask(patch_size: int, crop: int) -> np.ndarray:

@@ -12,6 +12,8 @@ temporary name and renamed into place.
 ``best/`` holds the best weights for inference in the reference's formats,
 ``HRNet.pth`` and ``ShiftNet.pth`` (state dicts, BatchNorm buffers
 included), with ``best_score.json`` beside them; all written synchronously.
+A RAMS run (``network.arch: "rams"``) keeps ``RAMS.pth`` there and no
+ShiftNet: its manager is made with ``network_file`` and ``shiftnet=False``.
 
 In a multi-process run the state is replicated: rank 0 alone writes, every
 rank then waits at a barrier, and a resume reads the run directory (shared
@@ -26,6 +28,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from highresnet_tpu_torch.config import network_arch
+from highresnet_tpu_torch.models.network import weights_file
 from highresnet_tpu_torch.parallel.distributed import barrier, process_index
 
 STATE_FILE = "state.pt"
@@ -57,12 +61,19 @@ def _load(path: str):
 
 
 class CheckpointManager:
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, network_file: str = HRNET_FILE, shiftnet: bool = True):
         self.run_dir = os.path.abspath(run_dir)
+        self.network_file = network_file
+        self.best_files = (network_file, SHIFTNET_FILE) if shiftnet else (network_file,)
         self.primary = process_index() == 0
         if self.primary:
             os.makedirs(self.run_dir, exist_ok=True)
         self._last_slot = self._read_latest().get("slot", "state_1")
+
+    @classmethod
+    def for_config(cls, run_dir: str, config: Dict[str, Any]) -> "CheckpointManager":
+        """The manager of a run of ``config``'s network (RAMS: ``RAMS.pth``, no ShiftNet)."""
+        return cls(run_dir, weights_file(config), shiftnet=network_arch(config) == "hrnet")
 
     def _path(self, *parts: str) -> str:
         return os.path.join(self.run_dir, *parts)
@@ -110,8 +121,9 @@ class CheckpointManager:
         """Synchronous: ``best/`` is complete on return."""
         if self.primary:
             os.makedirs(self._path("best"), exist_ok=True)
-            _save(params["hrnet"], self._path("best", HRNET_FILE))
-            _save({**params["shiftnet"], **batch_stats}, self._path("best", SHIFTNET_FILE))
+            _save(params["hrnet"], self._path("best", self.network_file))
+            if SHIFTNET_FILE in self.best_files:
+                _save({**params["shiftnet"], **batch_stats}, self._path("best", SHIFTNET_FILE))
             meta = {"score": float(score)}
             if epoch is not None:
                 meta["epoch"] = int(epoch)
@@ -119,15 +131,18 @@ class CheckpointManager:
         barrier()
 
     def has_best(self) -> bool:
-        return all(os.path.isfile(self._path("best", f)) for f in (HRNET_FILE, SHIFTNET_FILE))
+        return all(os.path.isfile(self._path("best", f)) for f in self.best_files)
 
     def load_best(self) -> Dict[str, Any]:
-        """{"params": {"hrnet", "shiftnet"}, "batch_stats"} from ``best/``."""
+        """{"params": {"hrnet"[, "shiftnet"]}, "batch_stats"} from ``best/``."""
+        network = _load(self._path("best", self.network_file))
+        if SHIFTNET_FILE not in self.best_files:
+            return {"params": {"hrnet": network}, "batch_stats": {}}
         shiftnet = _load(self._path("best", SHIFTNET_FILE))
         stats = {k: v for k, v in shiftnet.items() if k.endswith(_BUFFER_SUFFIXES)}
         return {
             "params": {
-                "hrnet": _load(self._path("best", HRNET_FILE)),
+                "hrnet": network,
                 "shiftnet": {k: v for k, v in shiftnet.items() if k not in stats},
             },
             "batch_stats": stats,

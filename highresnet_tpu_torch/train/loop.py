@@ -1,4 +1,4 @@
-"""Training orchestration: train HRNet + ShiftNet and keep the best weights.
+"""Training orchestration: train the SR network (+ ShiftNet) and keep the best weights.
 
 The counterpart of ``highresnet_tpu/train/loop.py``: per epoch, the train
 steps (``epoch.py``), validation on pre-collated batches
@@ -69,7 +69,8 @@ def train_and_get_best_model(
     run_dir: Optional[str] = None,
     device: torch.device | str = "cuda",
 ) -> Dict[str, Any]:
-    """Train HRNet + ShiftNet on ``device``; checkpoint and return the best.
+    """Train the SR network (HRNet + ShiftNet, or RAMS alone) on ``device``;
+    checkpoint and return the best.
 
     Returns {'params', 'batch_stats', 'best_score', 'best_epoch',
     'val_history', 'run_dir', 'train_loss'} (+ 'ema_selection' with EMA on);
@@ -141,7 +142,7 @@ def train_and_get_best_model(
 
     if run_dir is None:  # rank 0's clock names it
         run_dir = broadcast_string(os.path.join(paths["checkpoint_dir"], _run_dir_name(t)))
-    ckpt = CheckpointManager(run_dir)
+    ckpt = CheckpointManager.for_config(run_dir, config)
     scheduler = ReduceLROnPlateau(t["lr"], factor=t["lr_decay"], patience=t["lr_step"])
     writer = TBWriter(paths.get("tb_log_file_dir"), os.path.basename(run_dir),
                       enabled=layout.primary)

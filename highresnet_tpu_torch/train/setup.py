@@ -30,7 +30,7 @@ from highresnet_tpu_torch.data import BatchLoader
 from highresnet_tpu_torch.data.pipeline import EpochCache
 from highresnet_tpu_torch.parallel.distributed import assert_replicated
 from highresnet_tpu_torch.parallel.mesh import DataParallel, setup_data_parallel
-from highresnet_tpu_torch.train.checkpoint import HRNET_FILE, SHIFTNET_FILE, CheckpointManager
+from highresnet_tpu_torch.train.checkpoint import CheckpointManager
 from highresnet_tpu_torch.train.epoch import warp_window_px
 from highresnet_tpu_torch.train.pretrain import hr_crop_pool, pretrain_shiftnet
 from highresnet_tpu_torch.train.state import TrainState, create_train_state
@@ -91,29 +91,33 @@ class RunPieces(NamedTuple):
 
 @torch.no_grad()
 def _restart_ema(state: TrainState, model_names=("hrnet", "shiftnet")) -> None:
-    """Point the EMA of the named models at their current weights."""
+    """Point the EMA of the named models (those the state has) at their current weights."""
     if state.ema is None:
         return
-    for name in model_names:
-        for k, p in getattr(state, name).named_parameters():
-            state.ema[name][k].copy_(p)
+    for name, model in state.models.items():
+        if name in model_names:
+            for k, p in model.named_parameters():
+                state.ema[name][k].copy_(p)
 
 
-def load_init_params(state: TrainState, run_dir: str) -> None:
-    """Fine-tune start: both models' weights and ShiftNet's BatchNorm
+def load_init_params(state: TrainState, run_dir: str, config: Dict[str, Any]) -> None:
+    """Fine-tune start: the models' weights and ShiftNet's BatchNorm
     statistics from ``run_dir``'s ``best/``, the EMA restarted there. The
     optimizer stays fresh; the schedule and epoch count are the new run's."""
     best = os.path.join(run_dir, "best")
-    missing = [f for f in (HRNET_FILE, SHIFTNET_FILE) if not os.path.isfile(os.path.join(best, f))]
+    donor = CheckpointManager.for_config(run_dir, config)
+    missing = [f for f in donor.best_files if not os.path.isfile(os.path.join(best, f))]
     if missing:
         raise FileNotFoundError(
             f"training.init_params_from={run_dir!r}: {best} holds no {' or '.join(missing)}. "
             "It takes a run directory of the port's cli.train, or a JAX run directory (Orbax "
             "best/) after scripts/export_torch_weights.py has written both files into best/"
         )
-    restored = CheckpointManager(run_dir).load_best()
+    restored = donor.load_best()
     state.hrnet.load_state_dict(restored["params"]["hrnet"])
-    state.shiftnet.load_state_dict({**restored["params"]["shiftnet"], **restored["batch_stats"]})
+    if state.shiftnet is not None:
+        state.shiftnet.load_state_dict({**restored["params"]["shiftnet"],
+                                        **restored["batch_stats"]})
     _restart_ema(state)
 
 
@@ -147,11 +151,8 @@ def maybe_warmstart_shiftnet(state: TrainState, t: Dict[str, Any], train_list: L
 def replicated_groups(state: TrainState) -> Dict[str, Any]:
     """What must be identical on every rank: each model (parameters and
     buffers) and the dropout generator."""
-    return {
-        "hrnet": state.hrnet.state_dict().values(),
-        "shiftnet": state.shiftnet.state_dict().values(),
-        "generator": [state.generator.get_state()],
-    }
+    return {**{name: model.state_dict().values() for name, model in state.models.items()},
+            "generator": [state.generator.get_state()]}
 
 
 def build_models_and_steps(config: Dict[str, Any], device: torch.device, *, seed: int,
@@ -167,7 +168,7 @@ def build_models_and_steps(config: Dict[str, Any], device: torch.device, *, seed
     state = create_train_state(config, device, torch.Generator().manual_seed(seed))
     init_from = t.get("init_params_from") or ""
     if init_from:
-        load_init_params(state, init_from)
+        load_init_params(state, init_from, config)
         if layout.primary:
             print(f"init: params loaded from {init_from}/best", flush=True)
     maybe_warmstart_shiftnet(state, t, train_list, seed, is_primary=layout.primary)

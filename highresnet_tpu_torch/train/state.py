@@ -1,4 +1,4 @@
-"""Joint train state for HRNet + ShiftNet.
+"""Joint train state for the SR network + ShiftNet.
 
 The counterpart of ``highresnet_tpu/train/state.py``: one Adam over both
 models' parameters with a mutable learning rate (the plateau scheduler
@@ -12,6 +12,11 @@ the lr and returns the same state. On a card Adam is ``capturable``: its
 lr is a device tensor that ``with_learning_rate`` writes in stream order
 and its step counts live on the device, so the train step's CUDA graphs
 (``train/graphs.py``) read every lr change. On the CPU the lr is a float.
+
+The SR network is the one ``network.arch`` names (``models/network.py``),
+kept under the name ``hrnet`` whichever it is. RAMS trains without
+ShiftNet (its loss, cL1, searches the registration itself): its state's
+``shiftnet`` is None, and Adam, the EMA and the checkpoint hold RAMS alone.
 """
 
 from __future__ import annotations
@@ -21,14 +26,18 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from torch import nn
+
+from highresnet_tpu_torch.config import network_arch
 from highresnet_tpu_torch.models.hrnet import HRNet
+from highresnet_tpu_torch.models.network import build_network
 from highresnet_tpu_torch.models.shiftnet import ShiftNet
 from highresnet_tpu_torch.runtime import compute_dtypes
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's defaults
 ADAM_EPS = 1e-8
 
-Params = Dict[str, Dict[str, torch.Tensor]]  # {"hrnet": {name: tensor}, "shiftnet": ...}
+Params = Dict[str, Dict[str, torch.Tensor]]  # {"hrnet": {name: tensor}[, "shiftnet": ...]}
 
 
 def make_optimizer(params: List[torch.nn.Parameter], lr: float,
@@ -61,8 +70,8 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
 
 @dataclass
 class TrainState:
-    hrnet: HRNet
-    shiftnet: ShiftNet
+    hrnet: HRNet  # the SR network: HRNet, or RAMS
+    shiftnet: Optional[ShiftNet]  # None for RAMS
     optimizer: torch.optim.Adam
     generator: torch.Generator  # dropout masks, on the training device
     grad_clip_norm: float = 0.0
@@ -70,11 +79,15 @@ class TrainState:
     ema: Optional[Params] = None  # training.ema_decay > 0: tracked copies
 
     @property
+    def models(self) -> Dict[str, nn.Module]:
+        """The trained models by name: ``hrnet`` and, where there is one, ``shiftnet``."""
+        if self.shiftnet is None:
+            return {"hrnet": self.hrnet}
+        return {"hrnet": self.hrnet, "shiftnet": self.shiftnet}
+
+    @property
     def params(self) -> Params:
-        return {
-            "hrnet": dict(self.hrnet.named_parameters()),
-            "shiftnet": dict(self.shiftnet.named_parameters()),
-        }
+        return {name: dict(model.named_parameters()) for name, model in self.models.items()}
 
     @property
     def eval_params(self) -> Params:
@@ -84,7 +97,7 @@ class TrainState:
     @property
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         """ShiftNet's BatchNorm buffers (running mean/var, batch counts)."""
-        return dict(self.shiftnet.named_buffers())
+        return {} if self.shiftnet is None else dict(self.shiftnet.named_buffers())
 
     @property
     def learning_rate(self) -> float:
@@ -102,7 +115,7 @@ class TrainState:
         """Everything a resumed run needs to continue bit for bit."""
         return {
             "hrnet": self.hrnet.state_dict(),
-            "shiftnet": self.shiftnet.state_dict(),
+            "shiftnet": None if self.shiftnet is None else self.shiftnet.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "generator": self.generator.get_state(),
             "step": self.step,
@@ -115,8 +128,11 @@ class TrainState:
                 "the checkpoint's EMA does not match training.ema_decay; resume with "
                 "the original settings, or start a fresh run_dir"
             )
+        if (sd["shiftnet"] is None) != (self.shiftnet is None):
+            raise RuntimeError("the checkpoint's ShiftNet does not match network.arch")
         self.hrnet.load_state_dict(sd["hrnet"])
-        self.shiftnet.load_state_dict(sd["shiftnet"])
+        if self.shiftnet is not None:
+            self.shiftnet.load_state_dict(sd["shiftnet"])
         # the checkpoint's lr and capturable flag may come from a run on another
         # device: keep this optimizer's own (its lr tensor is what a graph reads)
         saved, own = sd["optimizer"], self.optimizer.param_groups
@@ -137,29 +153,26 @@ class TrainState:
 def create_train_state(
     config: Dict[str, Any], device: torch.device | str, generator: torch.Generator
 ) -> TrainState:
-    """Both models drawn from ``generator`` (CPU), the joint optimizer, the
-    dropout generator on ``device`` (seeded from ``generator``), and the EMA."""
+    """The models drawn from ``generator`` (CPU): the SR network, then
+    ShiftNet unless the network is RAMS; the joint optimizer, the dropout
+    generator on ``device`` (seeded from ``generator``), and the EMA."""
     t = config["training"]
     device = torch.device(device)
-    dtype, decoder_dtype = compute_dtypes(t.get("compute_dtype"))
-    hrnet = HRNet(config["network"], device=device, dtype=dtype, decoder_dtype=decoder_dtype,
-                  generator=generator)
-    shiftnet = ShiftNet(register_size=t.get("register_size", 128), device=device, dtype=dtype,
-                        generator=generator)
-    params = [*hrnet.parameters(), *shiftnet.parameters()]
+    hrnet = build_network(config, device, generator)
+    shiftnet = None
+    if network_arch(config) == "hrnet":
+        shiftnet = ShiftNet(register_size=t.get("register_size", 128), device=device,
+                            dtype=compute_dtypes(t.get("compute_dtype"))[0], generator=generator)
+    params = [*hrnet.parameters(), *(shiftnet.parameters() if shiftnet is not None else ())]
     dropout_seed = int(torch.randint(2**62, (1,), generator=generator))
-    ema = None
-    ema_decay = float(t.get("ema_decay", 0.0) or 0.0)
-    if ema_decay > 0:  # started AT init, so no debiasing is needed
-        ema = {
-            name: {k: p.detach().clone() for k, p in model.named_parameters()}
-            for name, model in (("hrnet", hrnet), ("shiftnet", shiftnet))
-        }
-    return TrainState(
+    state = TrainState(
         hrnet=hrnet,
         shiftnet=shiftnet,
         optimizer=make_optimizer(params, t["lr"], capturable=device.type == "cuda"),
         generator=torch.Generator(device=device).manual_seed(dropout_seed),
         grad_clip_norm=float(t.get("grad_clip_norm", 0.0) or 0.0),
-        ema=ema,
     )
+    if float(t.get("ema_decay", 0.0) or 0.0) > 0:  # started AT init, so no debiasing is needed
+        state.ema = {name: {k: p.detach().clone() for k, p in tensors.items()}
+                     for name, tensors in state.params.items()}
+    return state

@@ -12,6 +12,11 @@ The counterpart of ``highresnet_tpu/train/step.py`` (no mesh):
           + lambda · mean(shifts)² [+ range_penalty · mean overflow],
      one Adam step over both models, then the EMA update.
 
+RAMS (``network.arch: "rams"``) trains with its own loss and no ShiftNet:
+``training.loss: "cL1"`` with ``register: false`` replaces steps 2-4 with
+the batch mean of ``ops.losses.cl1_loss`` on the raw SR (its shift
+search over the ``crop`` border), and Adam runs over RAMS alone.
+
 The step updates the state in place and returns its metrics as device
 tensors (no host sync): ``loss``, ``mean_abs_shift``, ``max_abs_shift``
 and ``grad_norm`` (of the gradients before any clipping). Each step's
@@ -45,10 +50,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from highresnet_tpu_torch.config import network_arch
 from highresnet_tpu_torch.models.hrnet import HRNet
 from highresnet_tpu_torch.models.shiftnet import ShiftNet
 from highresnet_tpu_torch.ops.lanczos_fused import training_warp
-from highresnet_tpu_torch.ops.losses import LOSS_METRICS, crop_mask, registered_loss
+from highresnet_tpu_torch.ops.losses import CL1, LOSS_METRICS, cl1_loss, crop_mask, registered_loss
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr_batch
 from highresnet_tpu_torch.parallel import distributed
 from highresnet_tpu_torch.parallel.mesh import DataParallel
@@ -97,11 +103,14 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
     warp_int_range = int(t.get("warp_int_range", 0) or 0)
     register = bool(t.get("register", True))
     loss_metric = t.get("loss", "cPSNR")
-    if loss_metric not in LOSS_METRICS:
+    if loss_metric not in (*LOSS_METRICS, CL1):
         raise ValueError(
-            f"training.loss={loss_metric!r} not in {LOSS_METRICS} "
-            "(reference switch: src/train.py:66-87)"
+            f"training.loss={loss_metric!r} not in {(*LOSS_METRICS, CL1)} "
+            "(reference switch: src/train.py:66-87; cL1 is RAMS's)"
         )
+    if register and (loss_metric == CL1 or network_arch(config) == "rams"):
+        raise ValueError("RAMS and training.loss 'cL1' train without ShiftNet: "
+                         "set training.register to false")
     offset = (3 * patch - register_size) // 2
     if register and offset < 0:
         raise ValueError("3*patch_size must cover the registration crop")
@@ -124,11 +133,15 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
         else:  # unregistered arm: raw SR vs HR, no shift penalty term
             warped, thetas = srs, srs.new_zeros((srs.shape[0], 2))
         with span("train.step.loss"):
-            if hrs.device not in masks:
-                masks[hrs.device] = border_mask.to(hrs.device)
-            mask = masks[hrs.device][None] * hr_maps
             mean = (lambda x: global_mean(x, data_group)) if synced else torch.mean
-            loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric, mean=mean)
+            if loss_metric == CL1:
+                loss = mean(cl1_loss(srs, hrs, hr_maps, t["crop"]))
+            else:
+                if hrs.device not in masks:
+                    masks[hrs.device] = border_mask.to(hrs.device)
+                mask = masks[hrs.device][None] * hr_maps
+                loss = registered_loss(warped, hrs, mask, thetas, lam, metric=loss_metric,
+                                       mean=mean)
             if range_penalty > 0:
                 overflow = F.relu(srs - 1.0) + F.relu(-srs)
                 loss = loss + range_penalty * torch.mean(overflow.float())
@@ -174,21 +187,22 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
             state.optimizer.step()
         if ema_decay > 0:
             with span("train.step.ema"), torch.no_grad():
-                for name, model in (("hrnet", state.hrnet), ("shiftnet", state.shiftnet)):
+                for name, model in state.models.items():
                     ema = state.ema[name]
                     for k, p in model.named_parameters():
                         ema[k].add_((p - ema[k]) * (1.0 - ema_decay))
 
     def step(state: TrainState, lrs, alphas, hrs, hr_maps):
-        state.hrnet.train()
-        state.shiftnet.train()
+        for model in state.models.values():
+            model.train()
         state.hrnet.shard_views(view_group)
-        state.shiftnet.sync_batch(synced, data_group)
+        if state.shiftnet is not None:
+            state.shiftnet.sync_batch(synced, data_group)
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         batch = (lrs, alphas, hrs, hr_maps)
         metrics = None
         if eligible(lrs.device, synced):  # through CUDA graphs (train/graphs.py)
-            mode = (state.grad_clip_norm, state.shiftnet.dropout)
+            mode = (state.grad_clip_norm, None if state.shiftnet is None else state.shiftnet.dropout)
             warm = (len(state.optimizer.state) == len(params)
                     and all(p.grad is not None for p in params))
             metrics = graphed(

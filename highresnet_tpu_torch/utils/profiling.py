@@ -38,7 +38,10 @@ such a span has host time alone). Nothing in a span waits for the card;
   alignment and the mean), ``serve.to_host``, ``serve.range_check`` (the
   range check and the score, once the SR is on the host);
 - model stages (``models/hrnet.py``): ``hrnet.encode``, ``hrnet.fuse``,
-  ``hrnet.fuse.round`` (one pairwise round), ``hrnet.decode``;
+  ``hrnet.fuse.round`` (one pairwise round), ``hrnet.decode``; RAMS's
+  (``models/rams.py``): ``rams.features``, ``rams.reduce``,
+  ``rams.upscale``, ``rams.global``, and ``rams.gate`` (each attention
+  gate, nested in those);
 - train loop (``train/epoch.py``): ``train.epoch``, ``train.feed`` (a
   batch's host-to-device copies), ``train.step``, ``train.readback`` (the
   epoch's one read of its metrics);

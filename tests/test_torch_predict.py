@@ -32,6 +32,7 @@ NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.sea
                "parallel.distributed", "parallel.mesh", "cli.save_clearance",
                "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun",
                "bench", "labs.common",  # with the perf labs below
+               "models.rams", "models.network",  # RAMS, and the network a config names
                *(f"labs.{name}" for name in (
                    "fusion_lab", "fusion_lab2", "fusion_lab3", "bench_breakdown",
                    "trace_train_step")),

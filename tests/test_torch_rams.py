@@ -1,0 +1,449 @@
+"""RAMS (``models/rams.py``, ``network.arch: "rams"``) on the port's paths.
+
+On the CPU, at a small size (batch 2, T 9, 12 px, F 8, N 2, r 4), against
+the plain reference ``perfbench/reference/rams.py`` on seeded weights: the
+forward, cL1 and every parameter's gradient, three ``build_train_step``
+steps against three reference Adam steps; the shapes through the temporal
+reduction, the view fill, weight normalisation, a state without ShiftNet;
+serving through ``Model``, and ``cli.train`` -> checkpoint -> ``cli.predict``.
+On a card (skipped without one): replayed steps against eager steps bit for
+bit, and three steps at the recipe's shape (batch 32, 32 px, 9 views) through
+``run_train_epoch`` against the reference by the train cells' measures.
+
+This file imports neither JAX nor the JAX package, so it runs on a GPU
+machine without JAX:
+
+    python -m pytest tests/test_torch_rams.py --noconftest -q
+"""
+
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from highresnet_tpu_torch.config import load_config, network_arch
+from highresnet_tpu_torch.eval.evaluator import Model
+from highresnet_tpu_torch.models.hrnet import HRNet
+from highresnet_tpu_torch.models.network import build_network
+from highresnet_tpu_torch.models.rams import RAMS, WNConv, fill_views
+from highresnet_tpu_torch.ops.losses import cl1_loss
+from highresnet_tpu_torch.train import graphs
+from highresnet_tpu_torch.train import step as step_module
+from highresnet_tpu_torch.train.state import create_train_state
+from highresnet_tpu_torch.train.step import build_train_step
+from perfbench import compare, synth, weights
+from perfbench.reference import rams as ref_rams
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = {"filters": 8, "kernel_size": 3, "views": 9, "reduction": 4, "blocks": 2, "scale": 3}
+FORWARD_RTOL = 1e-5  # max |SR - ref| / max |ref|: the same f32 convolutions, the norms summed apart
+GRAD_TOL = 1e-4  # max |Δg| per tensor over its norm: f32 round-off through the backward
+LOSS_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two intra-op threads: the suite runs files side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def rams_config(**training) -> dict:
+    """``configs/rams.json`` at the small widths and batch 2, 12 px patches."""
+    config = load_config(str(ROOT / "configs" / "rams.json"))
+    config["network"]["rams"] = dict(TINY)
+    config["training"].update(batch_size=2, patch_size=12, **training)
+    return config
+
+
+def ref_weights(network, seed: int, device="cpu") -> dict:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return ref_rams.with_gains(weights.make(ref_rams.param_spec(network), g, device))
+
+
+def scenes(n: int, size: int, seed: int, real=None, device="cpu"):
+    """(lrs, alphas, hrs, hr_maps) of ``n`` scenes; ``real`` views each (all 9)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    lrs, alphas, hrs, maps = synth.scenes(g, n, 9, size, device, min_views=9)
+    if real is not None:
+        alphas[:, real:] = 0
+        lrs[:, real:] = 0
+    return lrs, alphas, hrs, maps
+
+
+def loaded_rams(network, params) -> RAMS:
+    model = RAMS(network)
+    model.load_state_dict(params)
+    return model
+
+
+# -- the network (CPU) ---------------------------------------------------------
+
+
+def test_forward_matches_the_reference():
+    net = {"arch": "rams", "rams": TINY}
+    params = ref_weights(net, 1)
+    lrs, alphas, _, _ = scenes(2, 12, 2)
+    alphas[1, 6:] = 0  # the second scene fills three slots from its six views
+    with torch.no_grad():
+        got = loaded_rams(net, params)(lrs, alphas)
+        want = ref_rams.RAMS(net)(params, lrs, alphas)
+    assert got.shape == (2, 36, 36)
+    assert compare.image_gap(got.numpy(), want.numpy()) < FORWARD_RTOL
+
+
+def test_published_widths_and_the_temporal_reduction():
+    """958,129 parameters at the published widths; T 9 -> 7 -> 5 -> 3 through
+    the reduction, 3 -> 1 in the upscale, and a 3H x 3W output."""
+    assert sum(p.numel() for p in RAMS({}).parameters()) == 958_129
+    model = RAMS({"rams": TINY})
+    frames = []
+    for module in (*model.reduce, model.upscale):
+        module.register_forward_hook(lambda _m, _a, out: frames.append(out.shape[2]))
+    with torch.no_grad():
+        out = model(torch.rand(2, 9, 12, 10), torch.ones(2, 9))
+    assert frames == [7, 5, 3, 1]
+    assert out.shape == (2, 36, 30)
+
+
+def test_missing_views_repeat_the_real_ones():
+    lrs = torch.arange(2 * 9, dtype=torch.float32).reshape(2, 9, 1, 1).repeat(1, 1, 2, 2)
+    alphas = torch.ones(2, 9)
+    alphas[0, 4:] = 0
+    alphas[1, [1, 3]] = 0  # real views need not come first
+    filled = fill_views(lrs, alphas, 9)[:, :, 0, 0]
+    assert filled[0].tolist() == [0, 1, 2, 3, 0, 1, 2, 3, 0]
+    assert filled[1].tolist() == [9, 11, 13, 14, 15, 16, 17, 9, 11]
+    # L 5 views, two real: zero slots up to T, filled by the two
+    short = fill_views(lrs[:, :5], alphas[:, :5] * torch.tensor([1, 1, 0, 0, 0.0]), 9)
+    assert short[0, :, 0, 0].tolist() == [0, 1] * 4 + [0]
+    # the network sees the filled stack, whatever the padded slots hold
+    model = RAMS({"rams": TINY})
+    x = torch.rand(1, 9, 12, 12)
+    padded = x.clone()
+    padded[:, 5:] = torch.rand(1, 4, 12, 12)
+    a = torch.tensor([[1.0] * 5 + [0.0] * 4])
+    with torch.no_grad():
+        assert torch.equal(model(padded, a), model(fill_views(x, a, 9), torch.ones(1, 9)))
+
+
+def test_weight_norm_is_g_v_over_the_norm_of_v():
+    conv = WNConv(3, 4, 6, 3)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        conv.weight_v.copy_(torch.randn(conv.weight_v.shape, generator=g))
+        conv.weight_g.copy_(torch.rand(6, generator=g) + 0.5)
+    v, gain = conv.weight_v.double(), conv.weight_g.double()
+    want = torch.stack([gain[o] * v[o] / torch.sqrt(torch.sum(v[o] ** 2)) for o in range(6)])
+    torch.testing.assert_close(conv.weight().double(), want, rtol=1e-6, atol=0)
+    # at init g is the norm of v, so the weight is v
+    model = RAMS({"rams": TINY})
+    for m in model.modules():
+        if isinstance(m, WNConv):
+            torch.testing.assert_close(m.weight(), m.weight_v, rtol=1e-6, atol=0)
+
+
+def test_cl1_and_every_gradient_match_the_reference():
+    net = {"arch": "rams", "rams": TINY}
+    params = ref_weights(net, 3)
+    lrs, alphas, hrs, maps = scenes(2, 12, 4)
+    model = loaded_rams(net, params)
+    sr = model(lrs, alphas)
+    got = cl1_loss(sr, hrs, maps, 3)
+    ref_params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    ref_sr = ref_rams.RAMS(net)(ref_params, lrs, alphas)
+    want = ref_rams.cl1(ref_sr, hrs, maps, 3)
+    torch.testing.assert_close(got, want, rtol=LOSS_RTOL, atol=0)
+    # the loss alone, on the same SR: the vectorised shift search is the published loop
+    torch.testing.assert_close(cl1_loss(ref_sr, hrs, maps, 3), want, rtol=1e-6, atol=0)
+    got.mean().backward()
+    want.mean().backward()
+    grads = dict(model.named_parameters())
+    assert set(grads) == set(ref_params)
+    for k, p in ref_params.items():
+        # a gate whose ReLU is shut gets no gradient on either side
+        gap = (grads[k].grad - p.grad).abs().max() / max(p.grad.norm(), 1e-30)
+        assert gap < GRAD_TOL, (k, gap.item())
+
+
+def test_three_train_steps_match_three_reference_adam_steps():
+    config = rams_config()
+    net = config["network"]
+    params = ref_weights(net, 5)
+    state = create_train_state(config, "cpu", torch.Generator().manual_seed(0))
+    state.hrnet.load_state_dict(params)
+    step = build_train_step(config)
+    trainer = ref_rams.Trainer(config, params)
+    got, want = [], []
+    for i in range(3):
+        batch = scenes(2, 12, 10 + i, real=7 if i == 1 else None)
+        state, m = step(state, *batch)
+        got.append(float(m["loss"]))
+        want.append(trainer.step(*batch))
+        assert float(m["mean_abs_shift"]) == float(m["max_abs_shift"]) == 0.0
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    lr = config["training"]["lr"]
+    for k, p in state.hrnet.named_parameters():
+        # Adam moves a weight by at most ~lr a step: its three moves agree to a
+        # small share of one
+        moved, ref_moved = p.detach() - params[k], trainer.params[k].detach() - params[k]
+        assert (moved - ref_moved).abs().max() < 0.05 * lr, k
+
+
+def test_the_state_holds_no_shiftnet():
+    config = rams_config()
+    state = create_train_state(config, "cpu", torch.Generator().manual_seed(0))
+    assert isinstance(state.hrnet, RAMS) and state.shiftnet is None
+    held = {id(p) for group in state.optimizer.param_groups for p in group["params"]}
+    assert held == {id(p) for p in state.hrnet.parameters()}
+    assert set(state.params) == {"hrnet"} and state.batch_stats == {}
+    saved = state.state_dict()
+    assert saved["shiftnet"] is None
+    state.load_state_dict(saved)
+    with pytest.raises(ValueError, match="register"):
+        build_train_step(rams_config(register=True))
+    ema = create_train_state(rams_config(ema_decay=0.9), "cpu", torch.Generator().manual_seed(0))
+    assert set(ema.ema) == {"hrnet"}
+    start = {k: p.detach().clone() for k, p in ema.hrnet.named_parameters()}
+    build_train_step(rams_config(ema_decay=0.9))(ema, *scenes(2, 12, 6))
+    for k, p in ema.hrnet.named_parameters():  # a tenth of the way to the new weights
+        torch.testing.assert_close(ema.ema["hrnet"][k], start[k] + 0.1 * (p.detach() - start[k]))
+
+
+def test_every_other_configuration_builds_hrnet():
+    paths = [*(ROOT / "configs").glob("*.json"), *(ROOT / "perfbench" / "configs").glob("*.json")]
+    for path in paths:
+        config = load_config(str(path))
+        want = RAMS if path.stem.startswith("rams") else HRNet
+        assert network_arch(config) == want.__name__.lower(), path
+        if want is HRNet:
+            assert isinstance(build_network(config, "cpu"), HRNet), path
+    with pytest.raises(ValueError, match="float32"):
+        build_network(rams_config(compute_dtype="bfloat16"), "cpu")
+
+
+# -- serving and the CLIs (CPU) --------------------------------------------------
+
+
+def test_model_serves_rams_plain_and_refuses_the_rest(tmp_path):
+    config = rams_config()
+    params = ref_weights(config["network"], 7)
+    lrs, alphas, _, _ = scenes(2, 12, 8, real=5)
+    model = Model(config, "cpu")
+    model.set_params(params)
+    got = model.forward(lrs.numpy(), alphas.numpy())
+    with torch.no_grad():
+        want = ref_rams.RAMS(config["network"])(params, lrs, alphas).numpy()
+    assert compare.image_gap(got, want) < FORWARD_RTOL
+    run = tmp_path / "best"
+    run.mkdir()
+    torch.save(model.hrnet.state_dict(), run / "RAMS.pth")
+    loaded = Model(config, "cpu")
+    loaded.load_checkpoint(str(tmp_path))  # a run directory: best/RAMS.pth
+    assert np.array_equal(loaded.forward(lrs.numpy(), alphas.numpy()), got)
+    for refuse in (lambda: loaded.enable_tta(8), lambda: loaded.load_ensemble([str(tmp_path)]),
+                   lambda: loaded.load_checkpoint_with_shiftnet(str(tmp_path))):
+        with pytest.raises(ValueError, match="RAMS serves plain"):
+            refuse()
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """One cli.train epoch of the small RAMS on synthetic scenes."""
+    from highresnet_tpu_torch.cli.train import main as train_main
+    from highresnet_tpu_torch.data.synth import make_synthetic_dataset
+
+    tmp = tmp_path_factory.mktemp("rams")
+    data = make_synthetic_dataset(str(tmp / "data"), n_scenes_per_channel=3, n_views=9,
+                                  lr_size=16, seed=3)
+    config = rams_config(num_epochs=1, n_workers=1, seed=0, eval_batch_size=2,
+                         val_proportion=0.34)
+    config["paths"] = {"prefix": data, "checkpoint_dir": str(tmp / "ckpt"),
+                       "tb_log_file_dir": ""}
+    path = tmp / "rams.json"
+    path.write_text(json.dumps(config))
+    run_dir = str(tmp / "run")
+    out = train_main(["--config", str(path), "--run-dir", run_dir, "--device", "cpu"])
+    return {"config": str(path), "run_dir": run_dir, "out": out}
+
+
+def test_cli_train_checkpoints_rams_alone(cli_run):
+    from highresnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    run_dir = cli_run["run_dir"]
+    assert sorted(os.listdir(os.path.join(run_dir, "best"))) == ["RAMS.pth"]
+    assert np.isfinite(cli_run["out"]["best_score"]) and cli_run["out"]["train_loss"] > 0
+    with open(os.path.join(run_dir, "latest.json")) as f:
+        slot = json.load(f)["slot"]
+    saved = torch.load(os.path.join(run_dir, slot, "state.pt"), weights_only=True)
+    assert saved["shiftnet"] is None and saved["step"] > 0
+    config = load_config(cli_run["config"])
+    best = CheckpointManager.for_config(run_dir, config).load_best()
+    assert best["batch_stats"] == {} and set(best["params"]) == {"hrnet"}
+    # the round trip: the resumable state and best/ load back into a fresh state
+    state = create_train_state(config, "cpu", torch.Generator().manual_seed(9))
+    state.load_state_dict(saved)
+    for k, p in state.hrnet.state_dict().items():
+        assert torch.equal(p, saved["hrnet"][k])
+    loaded_rams(config["network"], best["params"]["hrnet"])
+
+
+def test_cli_predict_serves_the_run(cli_run):
+    from highresnet_tpu_torch.cli.predict import main as predict_main
+
+    table = predict_main(["--config", cli_run["config"], "--checkpoint", cli_run["run_dir"],
+                          "--splits", "train", "val", "--device", "cpu"])
+    assert len(table) == 6 and np.isfinite(table["model"].astype(float)).all()
+
+
+# -- on the card ------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from highresnet_tpu_torch.runtime import setup_device
+
+    return setup_device("cuda")
+
+
+def run_steps(config, batches, device, graphed: bool, monkeypatch):
+    """A fresh state and step through ``batches`` (sizes of scenes), with
+    graphs or eagerly: the state, each step's metrics, the captures and replays."""
+    counts = {"capture": 0, "replay": 0}
+    capture, replay = graphs.capture, graphs.StepGraphs.replay
+
+    def counted_capture(*a, **k):
+        counts["capture"] += 1
+        return capture(*a, **k)
+
+    def counted_replay(self, batch):
+        counts["replay"] += 1
+        return replay(self, batch)
+
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "capture", counted_capture)
+        m.setattr(graphs.StepGraphs, "replay", counted_replay)
+        if not graphed:
+            m.setattr(step_module, "eligible", lambda device, synced: False)
+        state = create_train_state(config, device, torch.Generator().manual_seed(0))
+        step = build_train_step(config)
+        metrics = []
+        for i, n in enumerate(batches):
+            if i == 4:
+                state = state.with_learning_rate(state.learning_rate / 4)
+            batch = scenes(n, config["training"]["patch_size"], 100 + i, real=6 if i % 2 else None,
+                           device=device)
+            state, out = step(state, *batch)
+            metrics.append(out)
+    return state, metrics, counts
+
+
+@pytest.mark.cuda
+def test_replayed_rams_steps_equal_eager_steps_bit_for_bit(cuda, monkeypatch):
+    config = rams_config(ema_decay=0.99, grad_clip_norm=0.05)
+    sizes = [4, 4, 4, 2, 2, 2, 4, 4]  # a shape change after step 3 and back; the lr falls at 4
+    eager, eager_m, eager_n = run_steps(config, sizes, cuda, False, monkeypatch)
+    replayed, replayed_m, n = run_steps(config, sizes, cuda, True, monkeypatch)
+    assert eager_n == {"capture": 0, "replay": 0}
+    assert n == {"capture": 2, "replay": len(sizes) - 2}
+    for g, w in zip(replayed_m, eager_m):
+        for k in ("loss", "mean_abs_shift", "max_abs_shift", "grad_norm"):
+            assert torch.equal(g[k], w[k]), k
+    for k, p in eager.hrnet.state_dict().items():
+        assert torch.equal(replayed.hrnet.state_dict()[k], p), k
+    for p, q in zip(eager.optimizer.param_groups[0]["params"],
+                    replayed.optimizer.param_groups[0]["params"]):
+        sa, sb = eager.optimizer.state[p], replayed.optimizer.state[q]
+        assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    for k, t in eager.ema["hrnet"].items():
+        assert torch.equal(replayed.ema["hrnet"][k], t), k
+    assert replayed.step == eager.step == len(sizes)
+
+
+def leaf_norms(tensors):
+    return {k: float(torch.linalg.vector_norm(v.float())) for k, v in tensors.items()}
+
+
+def recipe_gaps(device, seed: int, control: bool = False) -> dict:
+    """The train cells' measures (``perfbench/drivers/train.py``) of three
+    steps at the recipe's shape (batch 32, 32 px, 9 views, the published
+    widths) from the weights of
+    ``seed``: the first step's ``loss_gap``, the worst leaf's ``grad_gap``
+    of first gradient norms and the median leaf's ``change_gap`` after three
+    steps, of the port through ``run_train_epoch`` or, with ``control``, of
+    the reference at TF32 in its place, against the reference in float64."""
+    from highresnet_tpu_torch.data.collate import Batch
+    from highresnet_tpu_torch.train.epoch import run_train_epoch
+
+    config = load_config(str(ROOT / "perfbench" / "configs" / "rams-probav.json"))
+    t = config["training"]
+    assert (t["batch_size"], t["patch_size"], t["min_L"]) == (32, 32, 9)
+    params = ref_weights(config["network"], seed, device)
+    batches = [[a.cpu().numpy() for a in scenes(32, 32, seed + i, device=device)]
+               for i in range(3)]
+    # the reference's reflect pad and min have no deterministic CUDA backward
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        if control:
+            tf32 = ref_rams.Trainer(config, params, ref_rams.TF32)
+            losses = [tf32.step(*(torch.as_tensor(a, device=device) for a in b)) for b in batches]
+            first = tf32.grad_norms[0]
+            change = leaf_norms({k: tf32.params[k].detach() - v for k, v in params.items()})
+        trainer = ref_rams.Trainer(config, {k: v.double() for k, v in params.items()})
+        want = [trainer.step(*(torch.as_tensor(a, device=device).double() for a in b))
+                for b in batches]
+    finally:
+        torch.use_deterministic_algorithms(True)
+    if not control:
+        state = create_train_state(config, device, torch.Generator().manual_seed(0))
+        state.hrnet.load_state_dict(params)
+        step = build_train_step(config)
+        losses = []
+
+        def recording(state, *batch):
+            state, m = step(state, *batch)
+            losses.append(float(m["loss"]))
+            return state, m
+        feed = [Batch(*b, [f"s{k}" for k in range(32)]) for b in batches]
+        names = {p: k for k, p in state.hrnet.named_parameters()}
+        state, _, _ = run_train_epoch(feed[:1], state, recording, device)
+        first = leaf_norms({names[p]: s["exp_avg"] / (1 - ref_rams.B1)
+                            for p, s in state.optimizer.state.items()})
+        state, _, _ = run_train_epoch(feed[1:], state, recording, device)
+        change = leaf_norms({k: p.detach() - params[k] for k, p in state.hrnet.named_parameters()})
+    ref_change = leaf_norms({k: trainer.params[k].detach() - v for k, v in params.items()})
+    moving = compare.moving_leaves(trainer.grad_norms)
+    grad = compare.leaf_gaps(first, trainer.grad_norms[0])
+    return {"loss_gap": compare.loss_gap(losses[:1], want[:1]), "grad_gap": float(grad.max()),
+            "worst_leaf": list(trainer.grad_norms[0])[int(grad.argmax())],
+            "change_gap": float(np.median(compare.leaf_gaps(change, ref_change, moving)))}
+
+
+RECIPE_LIMITS = {  # the train cells' limits, but grad_gap's (below)
+    "loss_gap": 1e-5,
+    # RAMS's worst leaf is always an attention gate's down-projection, whose
+    # gradient sums a (T, H, W) mean that cancels: on the H100 the port reads
+    # 1.81e-5 to 1.04e-4 over four seeds, the reference at TF32 5.44e-3 to
+    # 9.56e-2; HRNet's 3e-5 lies below the port's own round-off here
+    "grad_gap": 1e-3,
+    "change_gap": 0.05,
+}
+
+
+@pytest.mark.cuda
+def test_recipe_steps_agree_with_the_reference(cuda):
+    """The port's three recipe steps against the float64 reference. The
+    reference runs in float64: in float32 its own round-off in the gates'
+    leaves reads 6.3e-4 against float64 (the CPU, batch 4, 32 px), where the
+    port's reads 2.3e-5."""
+    gaps = recipe_gaps(cuda, 2**31 + 77)
+    print("recipe steps against the float64 reference:", gaps)
+    for k, limit in RECIPE_LIMITS.items():
+        assert gaps[k] <= limit, (k, gaps)

@@ -617,6 +617,7 @@ def phase_predict(fusion, lanczos_fused, card: str) -> dict:
     from highresnet_tpu_torch.cli import predict
     from highresnet_tpu_torch.data import collate, make_synthetic_dataset
     from highresnet_tpu_torch.eval.evaluator import Model, load_data
+    from highresnet_tpu_torch.models.convert import WEIGHTS_NAME
     from highresnet_tpu_torch.models.hrnet import HRNet, param_count
 
     views, size = HEADLINE["views"], HEADLINE["size"]
@@ -635,7 +636,7 @@ def phase_predict(fusion, lanczos_fused, card: str) -> dict:
         os.makedirs(run_dir)
         model = HRNet(cfg["network"], generator=torch.Generator().manual_seed(0))
         n_params = param_count(model)
-        torch.save(model.state_dict(), os.path.join(run_dir, "HRNet.pth"))
+        torch.save(model.state_dict(), os.path.join(run_dir, WEIGHTS_NAME))
 
         reset_counts()
         table = predict.main([
@@ -1900,6 +1901,7 @@ def flagship_train(paths: dict, runs: dict) -> dict:
     from highresnet_tpu_torch import load_config
     from highresnet_tpu_torch.cli import train
     from highresnet_tpu_torch.data import discover_scenes, train_val_split
+    from highresnet_tpu_torch.models.convert import SHIFTNET_NAME
 
     rounds = int(np.log2(FLAGSHIP["views"]))
     totals = dict.fromkeys(("pack", "unpack", "lanczos", "pack_dma"), 0)
@@ -1924,7 +1926,7 @@ def flagship_train(paths: dict, runs: dict) -> dict:
             raise AssertionError(f"kernel launches in {name} {counts} != {want}")
         if not (np.isfinite(out["train_loss"]) and np.isfinite(out["best_score"])):
             raise AssertionError(f"non-finite train loss or val score in {name}")
-        if not os.path.isfile(os.path.join(runs[name], "best", "ShiftNet.pth")):
+        if not os.path.isfile(os.path.join(runs[name], "best", SHIFTNET_NAME)):
             raise AssertionError(f"{name} wrote no best/ShiftNet.pth")
         for k in totals:
             totals[k] += counts[k]
@@ -2161,7 +2163,7 @@ def examples_gpu_vs_cpu(config: dict, run_dir: str, root: str) -> None:
     """The scoring legs on the card against the port's CPU path on the same
     weights and draws, per scene within SCORE_ATOL_DB: MFSR / one view /
     bicubic, the views sweep, the TTA arms and frac_cpsnr."""
-    from highresnet_tpu_torch.eval.evaluator import _Forward, load_model
+    from highresnet_tpu_torch.eval.evaluator import Forward, load_model
     from highresnet_tpu_torch.examples import register_ablation, tta_experiment, views_ablation
     from highresnet_tpu_torch.exp import harness
 
@@ -2169,7 +2171,7 @@ def examples_gpu_vs_cpu(config: dict, run_dir: str, root: str) -> None:
     views = EXAMPLES["views"]
     legs = {}
     for device in ("cuda", "cpu"):
-        fwd = _Forward(load_model(config, run_dir, device), torch.device(device), host=False)
+        fwd = Forward.plain(load_model(config, run_dir, device), torch.device(device), host=False)
         rows = harness.mfsr_rows(fwd, val, views, device)
         sweep = views_ablation.sweep(fwd, val, (1, 2, 4, views), device)
         tta_rows, _ = tta_experiment.run_split(fwd, val, views, len(val), "gpu-vs-cpu")

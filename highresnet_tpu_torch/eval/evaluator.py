@@ -2,19 +2,20 @@
 
 The counterpart of ``highresnet_tpu/eval/evaluator.py``: ``load_data``,
 ``get_sr_and_score``, ``load_model``, ``evaluate``, ``benchmark`` and the
-``Model`` facade, with the forwards behind them: one checkpoint
-(``_Forward``), a checkpoint ensemble (``_EnsembleForward``) and x4/x8
-dihedral TTA (``_TTAForward``), both PCC-registered to their first output
-by default, each in eval mode without autograd, returning numpy or, with
-``host=False``, the tensor on the model's device; ShiftNet-registered
-scoring; and the single-view bicubic route through JAX's cubic resize (``ops/resize.py``). Everything runs on the
-model's device: the SR forwards, the PCC alignment (its warp is the Lanczos
-kernel K3 on CUDA), the registered warp (K3) and the shift-search cPSNR.
+``Model`` facade, with the one serving forward behind them, ``Forward``:
+one checkpoint, a checkpoint ensemble or x4/x8 dihedral TTA, the last two
+PCC-registered to their first output by default, in eval mode without
+autograd, returning numpy or, with ``host=False``, the tensor on the
+model's device; ShiftNet-registered scoring; and the single-view bicubic
+route through JAX's cubic resize (``ops/resize.py``). Everything runs on
+the model's device: the SR forwards, the PCC alignment (its warp is the
+Lanczos kernel K3 on CUDA), the registered warp (K3) and the shift-search
+cPSNR.
 
-The SR network is the one ``network.arch`` names (``models/network.py``):
-HRNet, or RAMS, which serves plain (``load_checkpoint`` or ``set_params``,
-then ``forward`` or ``__call__``); TTA, ensembles and ShiftNet-registered
-scoring refuse it.
+The SR network is the one ``network.arch`` names (``models/network.py``).
+A network that comes without ShiftNet (RAMS) serves plain
+(``load_checkpoint`` or ``set_params``, then ``forward`` or ``__call__``);
+TTA, ensembles and ShiftNet-registered scoring refuse it.
 
 Two faults of the JAX evaluator are not carried over (ROADMAP hazard H5):
 ``Model.set_params`` and ``Model.load_checkpoint_with_shiftnet`` honour
@@ -32,8 +33,9 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import pandas as pd
 import torch
+from torch import nn
 
-from highresnet_tpu_torch.config import load_config, network_arch
+from highresnet_tpu_torch.config import load_config
 from highresnet_tpu_torch.data import (
     Batch,
     ImageSet,
@@ -43,16 +45,14 @@ from highresnet_tpu_torch.data import (
     read_baseline_cpsnr,
     train_val_split,
 )
-from highresnet_tpu_torch.models.convert import load_weights
-from highresnet_tpu_torch.models.hrnet import HRNet
-from highresnet_tpu_torch.models.network import build_network, weights_file
+from highresnet_tpu_torch.models.convert import SHIFTNET_NAME, load_weights
+from highresnet_tpu_torch.models.network import build_network, weights_file, with_shiftnet
 from highresnet_tpu_torch.models.shiftnet import ShiftNet, apply_shifts, register_views
 from highresnet_tpu_torch.ops.dihedral import SAFE_SUBGROUP, dihedral_fwd, dihedral_inv
 from highresnet_tpu_torch.ops.metrics import shift_cpsnr
 from highresnet_tpu_torch.ops.resize import resize_cubic
 from highresnet_tpu_torch.registration.search import pcc_align_batch
 from highresnet_tpu_torch.runtime import resolve_device
-from highresnet_tpu_torch.train.checkpoint import SHIFTNET_FILE
 from highresnet_tpu_torch.utils.profiling import span
 
 
@@ -74,18 +74,6 @@ def load_data(config_file_path: str, val_proportion: float = 0.10, top_k: int = 
     return mk(train_list), mk(val_list), mk(test_dirs), baseline
 
 
-def _device_batch(lrs, alphas, device: torch.device):
-    """(lrs, alphas), arrays or tensors, as float32 tensors on ``device``."""
-    with span("serve.to_device"):
-        return (torch.as_tensor(lrs, dtype=torch.float32, device=device),
-                torch.as_tensor(alphas, dtype=torch.float32, device=device))
-
-
-def _out(sr: torch.Tensor, host: bool):
-    with span("serve.to_host"):
-        return sr.cpu().numpy() if host else sr
-
-
 def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> torch.Tensor:
     """Mean of (B, H, W) SR outputs, each first PCC-aligned to ``srs[0]``
     with ``register``: one alignment call (one K3 launch on CUDA) over
@@ -99,79 +87,82 @@ def _register_and_average(srs: Sequence[torch.Tensor], register: bool) -> torch.
         return torch.stack(srs).mean(dim=0)
 
 
-class _Forward:
-    """(lrs, alphas) in, arrays or tensors; the (B, 3H, 3W) SR out, numpy
-    or, with ``host=False``, on ``device``, where the model runs."""
+class Forward:
+    """The serving forward: (lrs, alphas) in, arrays or tensors; the
+    (B, 3H, 3W) SR out, numpy or, with ``host=False``, on ``device``, where
+    the models run. Its members are the forwards it averages, each a model
+    under a dihedral element or as it is:
 
-    def __init__(self, model: HRNet, device: torch.device, host: bool = True):
-        self.model = model.eval()
-        self.device = device
-        self.host = host
+    - one model alone (``Forward.plain``): its SR, with no mean;
+    - an ensemble (``Forward.ensemble``), each model as it is: the paper's
+      HighRes-net+ entry ensembles two;
+    - TTA (``Forward.tta``), one model under each D4 symmetry of the LR
+      stack, the symmetry undone on its output. ``transforms=8`` needs
+      square inputs; 4 uses the shape-safe subgroup.
 
-    @span("serve.call")
-    def __call__(self, lrs, alphas):
-        with torch.inference_mode():
-            return _out(self.model(*_device_batch(lrs, alphas, self.device)), self.host)
+    Several members are averaged, each in its ``serve.transform`` span. With
+    ``register`` (default) each SR is first PCC-aligned to the first
+    member's: independently trained models settle on output frames O(1 px)
+    apart, and one model's output offset is not equivariant under the
+    dihedral action, so a raw mean blurs (ENSEMBLE_REPORT.json,
+    TTA_REPORT.json)."""
 
-
-class _EnsembleForward:
-    """The mean SR of several weight sets (the paper's HighRes-net+ entry
-    ensembles two models). With ``register`` (default) every member's SR is
-    PCC-aligned to the first member's before averaging: independently
-    trained members settle on output frames O(1 px) apart, so a raw mean
-    blurs (ENSEMBLE_REPORT.json)."""
-
-    def __init__(self, models: Sequence[HRNet], device: torch.device, register: bool = True,
-                 host: bool = True):
-        self.models = [m.eval() for m in models]
+    def __init__(self, members: Sequence[Tuple[nn.Module, Optional[int]]], device: torch.device,
+                 register: bool = True, host: bool = True):
+        self.members = [(model.eval(), t) for model, t in members]
         self.device = device
         self.register = register
         self.host = host
 
-    @span("serve.call")
-    def __call__(self, lrs, alphas):
-        with torch.inference_mode():
-            x, a = _device_batch(lrs, alphas, self.device)
-            srs = []
-            for m in self.models:
-                with span("serve.transform"):
-                    srs.append(m(x, a))
-            return _out(_register_and_average(srs, self.register), self.host)
+    @classmethod
+    def plain(cls, model: nn.Module, device: torch.device, host: bool = True) -> "Forward":
+        return cls([(model, None)], device, host=host)
 
+    @classmethod
+    def ensemble(cls, models: Sequence[nn.Module], device: torch.device, register: bool = True,
+                 host: bool = True) -> "Forward":
+        """List the strongest model first: the others are aligned to it."""
+        return cls([(m, None) for m in models], device, register, host)
 
-class _TTAForward:
-    """Geometric self-ensemble around one weight set: the SR of each D4
-    symmetry of the LR stack, the symmetry undone on the output, the mean.
-    With ``register`` (default) the outputs are PCC-aligned to the identity
-    transform's first: the model's O(1 px) output offset is not equivariant
-    under the dihedral action, so a raw mean blurs (TTA_REPORT.json).
-    ``transforms=8`` needs square inputs; 4 uses the shape-safe subgroup."""
-
-    def __init__(self, model: HRNet, device: torch.device, transforms: int = 8,
-                 register: bool = True, host: bool = True):
+    @classmethod
+    def tta(cls, model: nn.Module, device: torch.device, transforms: int = 8,
+            register: bool = True, host: bool = True) -> "Forward":
         if transforms not in (4, 8):
             raise ValueError(f"transforms must be 4 or 8, got {transforms}")
-        self.model = model.eval()
-        self.device = device
-        self.transforms = transforms
-        self.register = register
-        self.host = host
-        self.elements = SAFE_SUBGROUP if transforms == 4 else tuple(range(8))
+        elements = SAFE_SUBGROUP if transforms == 4 else tuple(range(8))
+        return cls([(model, t) for t in elements], device, register, host)
+
+    @staticmethod
+    def _member(model: nn.Module, t: Optional[int], x: torch.Tensor,
+                a: torch.Tensor) -> torch.Tensor:
+        return model(x, a) if t is None else dihedral_inv(model(dihedral_fwd(x, t), a), t)
 
     @span("serve.call")
     def __call__(self, lrs, alphas):
-        if self.transforms == 8 and lrs.shape[-2] != lrs.shape[-1]:
+        if (lrs.shape[-2] != lrs.shape[-1]
+                and any(t not in (None, *SAFE_SUBGROUP) for _, t in self.members)):
             raise ValueError(
                 "x8 TTA requires square inputs (90-degree rotations); "
                 f"got {lrs.shape[-2]}x{lrs.shape[-1]} — use transforms=4"
             )
         with torch.inference_mode():
-            x, a = _device_batch(lrs, alphas, self.device)
-            srs = []
-            for t in self.elements:
-                with span("serve.transform"):
-                    srs.append(dihedral_inv(self.model(dihedral_fwd(x, t), a), t))
-            return _out(_register_and_average(srs, self.register), self.host)
+            with span("serve.to_device"):
+                x = torch.as_tensor(lrs, dtype=torch.float32, device=self.device)
+                a = torch.as_tensor(alphas, dtype=torch.float32, device=self.device)
+            if len(self.members) == 1:
+                sr = self._member(*self.members[0], x, a)
+            else:
+                srs = []
+                for model, t in self.members:
+                    with span("serve.transform"):
+                        srs.append(self._member(model, t, x, a))
+                sr = _register_and_average(srs, self.register)
+            with span("serve.to_host"):
+                return sr.cpu().numpy() if self.host else sr
+
+
+# the names perfbench/faults.py patches to plant a fault in the plain and TTA forwards
+_Forward = _TTAForward = Forward
 
 
 def warn_out_of_range(sr: np.ndarray, name: str = "", tol: float = 0.3) -> bool:
@@ -268,19 +259,13 @@ def get_sr_and_score(
         return sr, score
 
 
-def build_model(config: Mapping[str, Any], device) -> HRNet:
-    """The SR network of ``config["network"]``: HRNet at
-    ``training.compute_dtype``, or RAMS under ``network.arch: "rams"``."""
-    return build_network(config, device)
-
-
-def load_model(config: Mapping[str, Any], checkpoint: str, device="cuda") -> HRNet:
+def load_model(config: Mapping[str, Any], checkpoint: str, device="cuda") -> nn.Module:
     """Build the SR network and load its weights, ``HRNet.pth`` or
     ``RAMS.pth`` (a file, or a directory holding it).
 
     A CUDA device that is missing raises before the checkpoint is read."""
     device = resolve_device(device)
-    model = build_model(config, device)
+    model = build_network(config, device)
     model.load_state_dict(load_weights(checkpoint, weights_file(config)))
     return model.eval()
 
@@ -343,8 +328,8 @@ class Model:
     def __init__(self, config: Dict[str, Any], device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
-        self.hrnet: Optional[HRNet] = None  # the SR network (RAMS under network.arch "rams")
-        self.forward = None  # _Forward, _EnsembleForward or _TTAForward
+        self.hrnet: Optional[nn.Module] = None  # the SR network, HRNet or RAMS
+        self.forward: Optional[Forward] = None
         self.registration: Optional[ShiftNet] = None  # load_checkpoint_with_shiftnet
 
     @property
@@ -352,20 +337,20 @@ class Model:
         return self.config["training"]
 
     def _hrnet_only(self, what: str) -> None:
-        if network_arch(self.config) != "hrnet":
+        if not with_shiftnet(self.config):
             raise ValueError(f"{what} serves HRNet only; RAMS serves plain "
                              "(load_checkpoint or set_params, then forward or __call__)")
 
     def load_checkpoint(self, checkpoint: str):
         """Load ``HRNet.pth`` or ``RAMS.pth`` (a file, or a run directory holding it)."""
         self.hrnet = load_model(self.config, checkpoint, self.device)
-        self.forward = _Forward(self.hrnet, self.device)
+        self.forward = Forward.plain(self.hrnet, self.device)
 
     def set_params(self, state_dict: Mapping[str, torch.Tensor]):
         """Use in-memory weights (a reference-format state dict)."""
-        self.hrnet = build_model(self.config, self.device)
+        self.hrnet = build_network(self.config, self.device)
         self.hrnet.load_state_dict(state_dict)
-        self.forward = _Forward(self.hrnet, self.device)
+        self.forward = Forward.plain(self.hrnet, self.device)
 
     def load_checkpoint_with_shiftnet(self, checkpoint: str):
         """Also load ShiftNet for registered scoring: HRNet from
@@ -373,12 +358,12 @@ class Model:
         ``best/ShiftNet.pth`` at ``register_size``, in eval mode. Takes a run
         directory of the port's cli.train or a directory holding both files."""
         self._hrnet_only("ShiftNet-registered scoring")
-        path = next((p for p in (os.path.join(checkpoint, SHIFTNET_FILE),
-                                 os.path.join(checkpoint, "best", SHIFTNET_FILE))
+        path = next((p for p in (os.path.join(checkpoint, SHIFTNET_NAME),
+                                 os.path.join(checkpoint, "best", SHIFTNET_NAME))
                      if os.path.isfile(p)), None)
         if path is None:
             raise FileNotFoundError(
-                f"{checkpoint} holds no {SHIFTNET_FILE} (nor best/{SHIFTNET_FILE}); registered "
+                f"{checkpoint} holds no {SHIFTNET_NAME} (nor best/{SHIFTNET_NAME}); registered "
                 "scoring takes a run directory of the port's cli.train, or a JAX run directory "
                 "after scripts/export_torch_weights.py"
             )
@@ -390,23 +375,23 @@ class Model:
     def load_ensemble(self, checkpoints: Sequence[str], register: bool = True):
         """Average the SR of several checkpoints (HighRes-net+). ``register``
         aligns every member to the first member's output frame before the
-        mean (``_EnsembleForward``): list the strongest model first."""
+        mean: list the strongest model first."""
         self._hrnet_only("an ensemble")
         models = [load_model(self.config, c, self.device) for c in checkpoints]
         self.hrnet = models[-1]
-        self.forward = _EnsembleForward(models, self.device, register=register)
+        self.forward = Forward.ensemble(models, self.device, register=register)
 
     def enable_tta(self, transforms: int = 8, register: bool = True):
         """Wrap the loaded single-checkpoint forward in x4/x8 dihedral TTA
-        (``_TTAForward``); call after load_checkpoint / set_params. Not
+        (``Forward.tta``); call after load_checkpoint / set_params. Not
         available on an ensemble."""
         self._hrnet_only("TTA")
-        if not isinstance(self.forward, _Forward):
+        if self.forward is None or len(self.forward.members) != 1:
             raise ValueError(
                 "enable_tta requires a single-checkpoint forward "
                 "(load_checkpoint/set_params first; not available on ensembles)"
             )
-        self.forward = _TTAForward(self.hrnet, self.device, transforms=transforms,
+        self.forward = Forward.tta(self.hrnet, self.device, transforms=transforms,
                                    register=register)
 
     def __call__(self, imset, registered: bool = False):

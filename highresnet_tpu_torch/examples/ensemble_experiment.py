@@ -175,7 +175,7 @@ def main(argv=None):
 
     from highresnet_tpu_torch.config import load_config
     from highresnet_tpu_torch.data import discover_scenes, train_val_split
-    from highresnet_tpu_torch.eval.evaluator import _Forward, _TTAForward
+    from highresnet_tpu_torch.eval.evaluator import Forward
     from highresnet_tpu_torch.exp import harness
     from highresnet_tpu_torch.runtime import setup_device
     from highresnet_tpu_torch.train.loop import train_and_get_best_model
@@ -231,8 +231,8 @@ def main(argv=None):
         print(f"[seed {seed}] best_val={out['best_score']:.3f} "
               f"({members[seed]['train_seconds']:.0f}s)", flush=True)
 
-    fwds = {s: _Forward(members[s]["model"], device, host=False) for s in seeds}
-    tta_fwds = ({s: _TTAForward(members[s]["model"], device, transforms=args.tta, register=True,
+    fwds = {s: Forward.plain(members[s]["model"], device, host=False) for s in seeds}
+    tta_fwds = ({s: Forward.tta(members[s]["model"], device, transforms=args.tta, register=True,
                                 host=False) for s in seeds} if args.tta else {})
 
     if args.fresh_test_seed is not None:

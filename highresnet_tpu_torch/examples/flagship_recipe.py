@@ -14,7 +14,7 @@ Arms (same dataset, same protocol, differ only in the recipe knobs):
           curriculum + D4 augmentation      (this framework's recipe)
 
 Scoring modes per arm: plain forward, and x8 dihedral TTA with PCC
-registration to the identity frame (eval/evaluator.py::_TTAForward). The
+registration to the identity frame (eval/evaluator.py::Forward.tta). The
 headline is full+TTA minus plain — what a user gains by switching the
 reference's training defaults to this framework's recipe.
 
@@ -54,11 +54,11 @@ def score_test_set(model, scene_dirs, views: int, device) -> dict:
     """Per scene, shift-cPSNR of the plain forward (``plain_fwd``) and of x8
     dihedral TTA PCC-registered to the identity frame (``tta8``)."""
     from highresnet_tpu_torch.data import collate
-    from highresnet_tpu_torch.eval.evaluator import _Forward, _TTAForward
+    from highresnet_tpu_torch.eval.evaluator import Forward
     from highresnet_tpu_torch.exp import harness
 
-    fwd_plain = _Forward(model, device, host=False)
-    fwd_tta = _TTAForward(model, device, transforms=8, register=True, host=False)
+    fwd_plain = Forward.plain(model, device, host=False)
+    fwd_tta = Forward.tta(model, device, transforms=8, register=True, host=False)
     scores = {"plain_fwd": [], "tta8": []}
     for d in scene_dirs:
         s = harness.read_scene(d, views)

@@ -39,7 +39,7 @@ def run_variants(net: dict, lrs, alphas, state_dict, device) -> Dict[str, "objec
     import numpy as np
     import torch
 
-    from highresnet_tpu_torch.eval.evaluator import _Forward
+    from highresnet_tpu_torch.eval.evaluator import Forward
     from highresnet_tpu_torch.models.hrnet import HRNet
     from highresnet_tpu_torch.runtime import compute_dtypes
 
@@ -47,7 +47,7 @@ def run_variants(net: dict, lrs, alphas, state_dict, device) -> Dict[str, "objec
         dtype, decoder_dtype = compute_dtypes(compute_dtype)
         model = HRNet(net, device=device, dtype=dtype, decoder_dtype=decoder_dtype)
         model.load_state_dict(state_dict)
-        return _Forward(model, device)(x, alphas)
+        return Forward.plain(model, device)(x, alphas)
 
     lrs = torch.as_tensor(np.asarray(lrs), dtype=torch.float32)
     return {

@@ -100,7 +100,7 @@ def main(argv=None):
     import numpy as np
 
     from highresnet_tpu_torch.config import load_config
-    from highresnet_tpu_torch.eval.evaluator import _Forward
+    from highresnet_tpu_torch.eval.evaluator import Forward
     from highresnet_tpu_torch.exp import harness
     from highresnet_tpu_torch.runtime import setup_device
     from highresnet_tpu_torch.train.loop import train_and_get_best_model
@@ -162,8 +162,8 @@ def main(argv=None):
     print(f"trained {args.epochs} epochs in {train_s:.0f}s; best={result['best_score']:.3f}")
 
     # --- score held-out validation scenes --------------------------------
-    fwd = _Forward(harness.model_from_params(config, result["params"]["hrnet"], device), device,
-                   host=False)
+    model = harness.model_from_params(config, result["params"]["hrnet"], device)
+    fwd = Forward.plain(model, device, host=False)
     val = harness.held_out_scenes(args.root, args.val_proportion)
     rows = harness.mfsr_rows(fwd, val, args.views, device, log=True)
 

@@ -31,13 +31,13 @@ def main(argv=None):
     import numpy as np
 
     from highresnet_tpu_torch.config import load_config
-    from highresnet_tpu_torch.eval.evaluator import _Forward, load_model
+    from highresnet_tpu_torch.eval.evaluator import Forward, load_model
     from highresnet_tpu_torch.exp import harness
     from highresnet_tpu_torch.runtime import setup_device
 
     device = setup_device(args.device)
     config = load_config(args.config)
-    fwd = _Forward(load_model(config, args.checkpoint, device), device, host=False)
+    fwd = Forward.plain(load_model(config, args.checkpoint, device), device, host=False)
     val = harness.held_out_scenes(args.data, args.val_proportion)
     rows = harness.mfsr_rows(fwd, val, args.views, device)
 

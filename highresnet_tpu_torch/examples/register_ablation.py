@@ -136,7 +136,7 @@ def main(argv=None):
     import numpy as np
 
     from highresnet_tpu_torch.config import load_config
-    from highresnet_tpu_torch.eval.evaluator import _Forward
+    from highresnet_tpu_torch.eval.evaluator import Forward
     from highresnet_tpu_torch.exp import harness
     from highresnet_tpu_torch.runtime import setup_device
     from highresnet_tpu_torch.train.loop import train_and_get_best_model
@@ -197,8 +197,8 @@ def main(argv=None):
         train_s = time.time() - t0
         print(f"[{arm}] trained in {train_s:.0f}s; best={out['best_score']:.3f}", flush=True)
 
-        fwd = _Forward(harness.model_from_params(config, out["params"]["hrnet"], device), device,
-                       host=False)
+        model = harness.model_from_params(config, out["params"]["hrnet"], device)
+        fwd = Forward.plain(model, device, host=False)
         int_scores, frac_scores = score_arm(fwd, val, args.views, device)
         results[arm] = {
             "mean_shift_cpsnr": float(np.mean(int_scores)),

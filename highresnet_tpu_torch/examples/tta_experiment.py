@@ -117,14 +117,14 @@ def main(argv=None):
 
     from highresnet_tpu_torch.config import load_config
     from highresnet_tpu_torch.data import discover_scenes, train_val_split
-    from highresnet_tpu_torch.eval.evaluator import _Forward, load_model
+    from highresnet_tpu_torch.eval.evaluator import Forward, load_model
     from highresnet_tpu_torch.exp import harness
     from highresnet_tpu_torch.runtime import setup_device
 
     device = setup_device(args.device)
     run = args.run or sorted(glob.glob(os.path.join(args.root, "ckpt", "*")))[-1]
     cfg = load_config(overrides={"training": {"min_L": args.views, "n_views": args.views}})
-    fwd = _Forward(load_model(cfg, run, device), device, host=False)
+    fwd = Forward.plain(load_model(cfg, run, device), device, host=False)
     print(f"checkpoint: {run}", flush=True)
 
     report = {

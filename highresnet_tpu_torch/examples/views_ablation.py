@@ -64,7 +64,7 @@ def main(argv=None):
     import numpy as np
 
     from highresnet_tpu_torch.config import load_config
-    from highresnet_tpu_torch.eval.evaluator import _Forward, load_model
+    from highresnet_tpu_torch.eval.evaluator import Forward, load_model
     from highresnet_tpu_torch.exp import harness
     from highresnet_tpu_torch.runtime import setup_device
 
@@ -72,7 +72,7 @@ def main(argv=None):
     run = args.checkpoint or sorted(glob.glob(os.path.join(args.root, "ckpt", "*")))[-1]
     max_views = max(args.views)
     config = load_config(overrides={"training": {"min_L": max_views, "n_views": max_views}})
-    fwd = _Forward(load_model(config, run, device), device, host=False)
+    fwd = Forward.plain(load_model(config, run, device), device, host=False)
 
     val = harness.held_out_scenes(args.root, args.val_proportion, args.max_scenes)
     out = sweep(fwd, val, args.views, device)

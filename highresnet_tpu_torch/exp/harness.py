@@ -6,7 +6,7 @@ blocks (the bicubic baseline, a per-scene shift-cPSNR scorer, the SR
 overflow), paired statistics and the report writer, plus what the drivers in
 ``highresnet_tpu_torch/examples/`` share: the weights of a training run as
 a model (``model_from_params``; the drivers score it through the
-evaluator's ``_Forward`` / ``_TTAForward`` with ``host=False``), a scored
+evaluator's ``Forward`` with ``host=False``), a scored
 scene's seeded view draw (``read_scene``), the MFSR / one-view / bicubic
 scoring of held-out scenes (``mfsr_rows``), the
 device label of a report (``device_label``) and the default report path
@@ -58,9 +58,9 @@ def device_label(device: torch.device | str) -> str:
 def model_from_params(config, hrnet_params, device: torch.device | str):
     """HRNet at ``training.compute_dtype`` on ``device`` holding
     ``hrnet_params`` (``train_and_get_best_model``'s ``params["hrnet"]``)."""
-    from highresnet_tpu_torch.eval.evaluator import build_model
+    from highresnet_tpu_torch.models.network import build_network
 
-    model = build_model(config, resolve_device(device))
+    model = build_network(config, resolve_device(device))
     model.load_state_dict(hrnet_params)
     return model.eval()
 

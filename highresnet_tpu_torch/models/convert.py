@@ -1,4 +1,4 @@
-"""Weights: flax param trees -> reference state dicts, and HRNet.pth IO.
+"""Weights: flax param trees -> reference state dicts, and their files.
 
 The inverses of ``highresnet_tpu.models.convert.hrnet_params_from_torch``
 and ``shiftnet_from_torch``, and of the JAX VGG extractor's torchvision
@@ -8,8 +8,9 @@ need to be array-like (numpy arrays, or anything ``np.asarray`` takes).
 Kernels go HWIO -> OIHW; the decoder's deconv kernel (kh, kw, in, out) ->
 ConvTranspose2d's (in, out, kh, kw); dense kernels (in, out) -> (out, in).
 
-The port's weights file is the reference's own ``HRNet.pth`` state-dict
-format. A JAX run directory's Orbax ``best/`` is turned into one with
+The port's weights files are the reference's own state-dict formats,
+``HRNet.pth`` and ``ShiftNet.pth`` (``WEIGHTS_NAME``, ``SHIFTNET_NAME``). A
+JAX run directory's Orbax ``best/`` is turned into them with
 ``scripts/export_torch_weights.py``, outside the port (Orbax needs JAX).
 """
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 WEIGHTS_NAME = "HRNet.pth"
+SHIFTNET_NAME = "ShiftNet.pth"
 
 
 def _t(a) -> torch.Tensor:

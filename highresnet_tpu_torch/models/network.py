@@ -1,20 +1,25 @@
-"""The SR network a configuration names, and its weights file.
+"""The SR network a configuration names, and what it brings to the port's
+paths: how it is built, its weights file, and whether it comes with
+ShiftNet. The one module besides ``config.py`` that reads ``network.arch``;
+serving, training and the checkpoints ask here.
 
-``network.arch`` (``config.network_arch``) picks HRNet (the default) or
-RAMS; serving (``eval/evaluator.py``), training (``train/state.py``) and the
-checkpoints (``train/checkpoint.py``) build and name the network here.
+HRNet comes with ShiftNet: it trains registered by it, its run keeps
+``ShiftNet.pth`` beside its weights, and it serves TTA, ensembles and
+ShiftNet-registered scoring besides the plain forward. RAMS does not: it
+trains unregistered (its loss, cL1, searches the registration itself) and
+serves the plain forward only.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Tuple
 
 import torch
 from torch import nn
 
 from highresnet_tpu_torch.config import network_arch
 from highresnet_tpu_torch.models import rams
-from highresnet_tpu_torch.models.convert import WEIGHTS_NAME as HRNET_WEIGHTS
+from highresnet_tpu_torch.models.convert import SHIFTNET_NAME, WEIGHTS_NAME
 from highresnet_tpu_torch.models.hrnet import HRNet
 from highresnet_tpu_torch.runtime import compute_dtypes
 
@@ -36,4 +41,17 @@ def build_network(config: Mapping[str, Any], device,
 
 def weights_file(config: Mapping[str, Any]) -> str:
     """The file that holds the network's weights: ``HRNet.pth`` or ``RAMS.pth``."""
-    return rams.WEIGHTS_NAME if network_arch(config) == "rams" else HRNET_WEIGHTS
+    return rams.WEIGHTS_NAME if network_arch(config) == "rams" else WEIGHTS_NAME
+
+
+def with_shiftnet(config: Mapping[str, Any]) -> bool:
+    """Whether the network comes with ShiftNet (the module notes)."""
+    return network_arch(config) == "hrnet"
+
+
+def best_files(config: Mapping[str, Any]) -> Tuple[str, ...]:
+    """The files a run's ``best/`` holds: the network's weights, then
+    ``ShiftNet.pth`` where the network comes with ShiftNet."""
+    if with_shiftnet(config):
+        return weights_file(config), SHIFTNET_NAME
+    return (weights_file(config),)

@@ -29,7 +29,8 @@ output channel, a separate bias):
   pixel-shuffled by s;
 - SR = (upscale + global) · σ + μ.
 
-Convolutions not marked valid pad 'same' with zeros, as Keras pads. Spans:
+Convolutions not marked valid pad 'same' with zeros, as Keras pads; the
+reflect pads are ``ops.lanczos.reflect_pad``'s, made of slices. Spans:
 ``rams.features`` (normalise, fill, body), ``rams.reduce``,
 ``rams.upscale``, ``rams.global``, and ``rams.gate`` around each of the
 N + (T − 1)/(k − 1) gates, nested in those.
@@ -51,19 +52,12 @@ from torch import nn
 
 from highresnet_tpu_torch.config import rams_settings
 from highresnet_tpu_torch.models.layers import lecun_normal_
+from highresnet_tpu_torch.ops.lanczos import reflect_pad
 from highresnet_tpu_torch.utils.profiling import span
 
 WEIGHTS_NAME = "RAMS.pth"
 MEAN = 7433.6436 / 65535.0  # the published normalisation, raw uint16 units over 65535
 STD = 2353.0723 / 65535.0
-
-
-def reflect_pad_hw(x: torch.Tensor, p: int = 1) -> torch.Tensor:
-    """``x`` reflect-padded by ``p`` pixels on its last two axes, as
-    ``F.pad(..., mode="reflect")``, from slices: CUDA's reflection-pad
-    backward has no deterministic form."""
-    x = torch.cat([x[..., 1:p + 1, :].flip(-2), x, x[..., -p - 1:-1, :].flip(-2)], dim=-2)
-    return torch.cat([x[..., 1:p + 1].flip(-1), x, x[..., -p - 1:-1].flip(-1)], dim=-1)
 
 
 def fill_views(lrs: torch.Tensor, alphas: torch.Tensor, views: int) -> torch.Tensor:
@@ -135,7 +129,7 @@ class TemporalReduction(nn.Module):
         self.pad = k // 2
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.conv(reflect_pad_hw(self.rfab(z), self.pad)))
+        return F.relu(self.conv(reflect_pad(self.rfab(z), self.pad)))
 
 
 class RAMS(nn.Module):
@@ -189,8 +183,8 @@ class RAMS(nn.Module):
         with span("rams.reduce"):
             z = self.reduce(z)
         with span("rams.upscale"):
-            up = F.pixel_shuffle(self.upscale(reflect_pad_hw(z, self.pad))[:, :, 0], self.scale)
+            up = F.pixel_shuffle(self.upscale(reflect_pad(z, self.pad))[:, :, 0], self.scale)
         with span("rams.global"):
-            g = self.rtab(reflect_pad_hw(x, self.pad))
+            g = self.rtab(reflect_pad(x, self.pad))
             res = F.pixel_shuffle(self.rtab_out(g), self.scale)
         return ((up + res) * STD + MEAN)[:, 0]

@@ -12,8 +12,8 @@ temporary name and renamed into place.
 ``best/`` holds the best weights for inference in the reference's formats,
 ``HRNet.pth`` and ``ShiftNet.pth`` (state dicts, BatchNorm buffers
 included), with ``best_score.json`` beside them; all written synchronously.
-A RAMS run (``network.arch: "rams"``) keeps ``RAMS.pth`` there and no
-ShiftNet: its manager is made with ``network_file`` and ``shiftnet=False``.
+A run of another network keeps the files ``models/network.py`` names for it
+(RAMS: ``RAMS.pth`` alone); its manager is made by ``for_config``.
 
 In a multi-process run the state is replicated: rank 0 alone writes, every
 rank then waits at a barrier, and a resume reads the run directory (shared
@@ -28,13 +28,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from highresnet_tpu_torch.config import network_arch
-from highresnet_tpu_torch.models.network import weights_file
+from highresnet_tpu_torch.models.convert import SHIFTNET_NAME, WEIGHTS_NAME
+from highresnet_tpu_torch.models.network import best_files
 from highresnet_tpu_torch.parallel.distributed import barrier, process_index
 
 STATE_FILE = "state.pt"
-HRNET_FILE = "HRNet.pth"
-SHIFTNET_FILE = "ShiftNet.pth"
 _BUFFER_SUFFIXES = (".running_mean", ".running_var", ".num_batches_tracked")
 
 
@@ -61,10 +59,9 @@ def _load(path: str):
 
 
 class CheckpointManager:
-    def __init__(self, run_dir: str, network_file: str = HRNET_FILE, shiftnet: bool = True):
+    def __init__(self, run_dir: str):
         self.run_dir = os.path.abspath(run_dir)
-        self.network_file = network_file
-        self.best_files = (network_file, SHIFTNET_FILE) if shiftnet else (network_file,)
+        self.best_files = (WEIGHTS_NAME, SHIFTNET_NAME)  # HRNet's; see for_config
         self.primary = process_index() == 0
         if self.primary:
             os.makedirs(self.run_dir, exist_ok=True)
@@ -72,8 +69,11 @@ class CheckpointManager:
 
     @classmethod
     def for_config(cls, run_dir: str, config: Dict[str, Any]) -> "CheckpointManager":
-        """The manager of a run of ``config``'s network (RAMS: ``RAMS.pth``, no ShiftNet)."""
-        return cls(run_dir, weights_file(config), shiftnet=network_arch(config) == "hrnet")
+        """The manager of a run of ``config``'s network, whose ``best/`` holds
+        ``models.network.best_files(config)``."""
+        ckpt = cls(run_dir)
+        ckpt.best_files = best_files(config)
+        return ckpt
 
     def _path(self, *parts: str) -> str:
         return os.path.join(self.run_dir, *parts)
@@ -121,9 +121,9 @@ class CheckpointManager:
         """Synchronous: ``best/`` is complete on return."""
         if self.primary:
             os.makedirs(self._path("best"), exist_ok=True)
-            _save(params["hrnet"], self._path("best", self.network_file))
-            if SHIFTNET_FILE in self.best_files:
-                _save({**params["shiftnet"], **batch_stats}, self._path("best", SHIFTNET_FILE))
+            _save(params["hrnet"], self._path("best", self.best_files[0]))
+            if SHIFTNET_NAME in self.best_files:
+                _save({**params["shiftnet"], **batch_stats}, self._path("best", SHIFTNET_NAME))
             meta = {"score": float(score)}
             if epoch is not None:
                 meta["epoch"] = int(epoch)
@@ -135,10 +135,10 @@ class CheckpointManager:
 
     def load_best(self) -> Dict[str, Any]:
         """{"params": {"hrnet"[, "shiftnet"]}, "batch_stats"} from ``best/``."""
-        network = _load(self._path("best", self.network_file))
-        if SHIFTNET_FILE not in self.best_files:
+        network = _load(self._path("best", self.best_files[0]))
+        if SHIFTNET_NAME not in self.best_files:
             return {"params": {"hrnet": network}, "batch_stats": {}}
-        shiftnet = _load(self._path("best", SHIFTNET_FILE))
+        shiftnet = _load(self._path("best", SHIFTNET_NAME))
         stats = {k: v for k, v in shiftnet.items() if k.endswith(_BUFFER_SUFFIXES)}
         return {
             "params": {

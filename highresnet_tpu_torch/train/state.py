@@ -14,9 +14,9 @@ and its step counts live on the device, so the train step's CUDA graphs
 (``train/graphs.py``) read every lr change. On the CPU the lr is a float.
 
 The SR network is the one ``network.arch`` names (``models/network.py``),
-kept under the name ``hrnet`` whichever it is. RAMS trains without
-ShiftNet (its loss, cL1, searches the registration itself): its state's
-``shiftnet`` is None, and Adam, the EMA and the checkpoint hold RAMS alone.
+kept under the name ``hrnet`` whichever it is. A network that comes without
+ShiftNet (RAMS) trains alone: its state's ``shiftnet`` is None, and Adam,
+the EMA and the checkpoint hold the network alone.
 """
 
 from __future__ import annotations
@@ -28,9 +28,8 @@ import torch
 
 from torch import nn
 
-from highresnet_tpu_torch.config import network_arch
 from highresnet_tpu_torch.models.hrnet import HRNet
-from highresnet_tpu_torch.models.network import build_network
+from highresnet_tpu_torch.models.network import build_network, with_shiftnet
 from highresnet_tpu_torch.models.shiftnet import ShiftNet
 from highresnet_tpu_torch.runtime import compute_dtypes
 
@@ -154,13 +153,13 @@ def create_train_state(
     config: Dict[str, Any], device: torch.device | str, generator: torch.Generator
 ) -> TrainState:
     """The models drawn from ``generator`` (CPU): the SR network, then
-    ShiftNet unless the network is RAMS; the joint optimizer, the dropout
+    ShiftNet where the network comes with it; the joint optimizer, the dropout
     generator on ``device`` (seeded from ``generator``), and the EMA."""
     t = config["training"]
     device = torch.device(device)
     hrnet = build_network(config, device, generator)
     shiftnet = None
-    if network_arch(config) == "hrnet":
+    if with_shiftnet(config):
         shiftnet = ShiftNet(register_size=t.get("register_size", 128), device=device,
                             dtype=compute_dtypes(t.get("compute_dtype"))[0], generator=generator)
     params = [*hrnet.parameters(), *(shiftnet.parameters() if shiftnet is not None else ())]

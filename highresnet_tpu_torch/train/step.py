@@ -50,8 +50,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from highresnet_tpu_torch.config import network_arch
 from highresnet_tpu_torch.models.hrnet import HRNet
+from highresnet_tpu_torch.models.network import with_shiftnet
 from highresnet_tpu_torch.models.shiftnet import ShiftNet
 from highresnet_tpu_torch.ops.lanczos_fused import training_warp
 from highresnet_tpu_torch.ops.losses import CL1, LOSS_METRICS, cl1_loss, crop_mask, registered_loss
@@ -108,7 +108,7 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
             f"training.loss={loss_metric!r} not in {(*LOSS_METRICS, CL1)} "
             "(reference switch: src/train.py:66-87; cL1 is RAMS's)"
         )
-    if register and (loss_metric == CL1 or network_arch(config) == "rams"):
+    if register and (loss_metric == CL1 or not with_shiftnet(config)):
         raise ValueError("RAMS and training.loss 'cL1' train without ShiftNet: "
                          "set training.register to false")
     offset = (3 * patch - register_size) // 2

@@ -26,8 +26,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-SHIFTNET_NAME = "ShiftNet.pth"
-
 
 def _holds_shiftnet(best: str) -> bool:
     import orbax.checkpoint as ocp
@@ -53,6 +51,7 @@ def main(argv=None) -> str:
     from highresnet_tpu.config import load_config
     from highresnet_tpu.eval.evaluator import Model, load_model
     from highresnet_tpu_torch.models.convert import (
+        SHIFTNET_NAME,
         WEIGHTS_NAME,
         hrnet_state_dict_from_flax,
         shiftnet_state_dict_from_flax,

@@ -37,7 +37,7 @@ from highresnet_tpu.models.hrnet import HRNet as JaxHRNet
 from highresnet_tpu.ops.metrics import cpsnr as jax_cpsnr
 from highresnet_tpu.ops.metrics import shift_cpsnr as jax_shift_cpsnr
 from highresnet_tpu_torch.data import discover_scenes, make_synthetic_dataset
-from highresnet_tpu_torch.eval.evaluator import _Forward
+from highresnet_tpu_torch.eval.evaluator import Forward
 from highresnet_tpu_torch.models.convert import hrnet_state_dict_from_flax
 from highresnet_tpu_torch.models.hrnet import HRNet
 
@@ -145,7 +145,7 @@ def test_mfsr_rows_match_jax(data, weights, tmp_path):
 
     root, scenes = data
     params, models = weights
-    got = harness.mfsr_rows(_Forward(models[0], CPU, host=False), scenes, L, "cpu")
+    got = harness.mfsr_rows(Forward.plain(models[0], CPU, host=False), scenes, L, "cpu")
     fwd = _jax_fwd(params[0])
     for row, d in zip(got, scenes):
         s = _jax_read(d, L)
@@ -176,7 +176,7 @@ def test_views_sweep_matches_jax(data, weights):
     _, scenes = data
     params, models = weights
     views = (1, 2, 4)
-    got = sweep(_Forward(models[1], CPU, host=False), scenes[:2], views, "cpu")
+    got = sweep(Forward.plain(models[1], CPU, host=False), scenes[:2], views, "cpu")
     fwd = _jax_fwd(params[1])
     want = {k: [] for k in views}
     overflow = {k: [] for k in views}
@@ -206,7 +206,7 @@ def test_tta_rows_match_jax(data, weights):
 
     _, scenes = data
     params, models = weights
-    rows, summary = run_split(_Forward(models[2], CPU, host=False), scenes, L, 4, "val")
+    rows, summary = run_split(Forward.plain(models[2], CPU, host=False), scenes, L, 4, "val")
     assert summary["n_scenes"] == len(scenes) == 4 and len(summary["per_transform_offset_px"]) == 7
     hrnet = _JAX_HRNET
 
@@ -247,7 +247,7 @@ def test_frac_cpsnr_matches_jax(data, weights):
     params, models = weights
     grid = frac_grid("cpu")
     assert grid.shape == (625, 2) and float(grid.abs().max()) == 3.0
-    int_got, frac_got = score_arm(_Forward(models[0], CPU, host=False), scenes[:2], L, "cpu")
+    int_got, frac_got = score_arm(Forward.plain(models[0], CPU, host=False), scenes[:2], L, "cpu")
     grid_j = jnp.asarray(grid.numpy())
 
     @jax.jit
@@ -362,7 +362,7 @@ def test_ensemble_rows_match_jax(data, weights):
     """ensemble_experiment with three members and --tta 8: every member,
     TTA member, full-stack, naive and registered pair and all-member score,
     the stacking weights and the stacked scores."""
-    from highresnet_tpu_torch.eval.evaluator import _TTAForward
+    from highresnet_tpu_torch.eval.evaluator import Forward
     from highresnet_tpu_torch.examples.ensemble_experiment import (
         ensemble_rows,
         stack_weights,
@@ -372,8 +372,8 @@ def test_ensemble_rows_match_jax(data, weights):
     _, scenes = data
     params, models = weights
     best_val = {0: -10.0, 1: -12.0, 2: -11.0}  # seed 1 anchors
-    fwds = {s: _Forward(m, CPU, host=False) for s, m in models.items()}
-    ttas = {s: _TTAForward(m, CPU, transforms=8, host=False) for s, m in models.items()}
+    fwds = {s: Forward.plain(m, CPU, host=False) for s, m in models.items()}
+    ttas = {s: Forward.tta(m, CPU, transforms=8, host=False) for s, m in models.items()}
     rows, offsets, scene_data = ensemble_rows(fwds, ttas, best_val, scenes, L, "cpu")
     assert set(offsets) == {(0, 1), (0, 2), (1, 2)} and len(offsets[(0, 1)]) == 4
     want_rows, want_w, want_stacked = _jax_ensemble(params, best_val, scenes, 8)

@@ -3,6 +3,7 @@ against the port's predict CLI on the same weights exported as HRNet.pth,
 per scene within the 0.01 dB parity contract; plus the port's import
 boundary (no JAX) and the CLI's refusals."""
 
+import ast
 import importlib.util
 import json
 import re
@@ -167,6 +168,46 @@ def test_port_sources_have_no_jax_and_no_torch_compile():
     jax_package = re.compile(r"^\s*(import|from)\s+highresnet_tpu\b(?!_torch)", re.M)
     assert not [str(p) for p in files if jax_package.search(p.read_text())]
     assert REPO / "highresnet_tpu_torch" / "labs" / "fusion_lab4.py" in files
+
+
+def test_port_sources_keep_the_network_and_serving_seams():
+    """``network.arch`` is read only by ``config.py`` and ``models/network.py``;
+    each weights file name is defined once; ``eval/`` imports nothing from
+    ``train/``; and no module outside the evaluator uses its private names."""
+    port = REPO / "highresnet_tpu_torch"
+    sources = sorted(port.rglob("*.py"))
+    files = sources + sorted((REPO / "tests").glob("test_torch_*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "export_torch_weights.py"]
+    arch = re.compile(r"\bnetwork_arch\b|[\"']arch[\"']")
+    assert {p.relative_to(port).as_posix() for p in sources if arch.search(p.read_text())} == {
+        "config.py", "models/network.py"}
+    evaluator = "highresnet_tpu_torch.eval.evaluator"
+    defined, private = [], []
+    for path in files:
+        tree = ast.parse(path.read_text())
+        bound = set()  # the names the port's evaluator module is bound to here
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant):
+                if node.value.value in ("HRNet.pth", "ShiftNet.pth"):
+                    defined.append((node.value.value, path.name))
+            modules = ([node.module] if isinstance(node, ast.ImportFrom)
+                       else [a.name for a in node.names] if isinstance(node, ast.Import) else [])
+            if path.is_relative_to(port / "eval"):
+                assert not any(m and m.startswith("highresnet_tpu_torch.train")
+                               for m in modules), path
+            if isinstance(node, ast.ImportFrom) and node.module:
+                if node.module == evaluator:
+                    private += [(path.name, a.name) for a in node.names if a.name[0] == "_"]
+                if node.module == "highresnet_tpu_torch.eval":
+                    bound |= {a.asname or a.name for a in node.names if a.name == "evaluator"}
+            if isinstance(node, ast.Import):
+                bound |= {a.asname for a in node.names if a.name == evaluator and a.asname}
+        if path != port / "eval" / "evaluator.py":
+            private += [(path.name, node.attr) for node in ast.walk(tree)
+                        if isinstance(node, ast.Attribute) and node.attr[0] == "_"
+                        and isinstance(node.value, ast.Name) and node.value.id in bound]
+    assert sorted(defined) == [("HRNet.pth", "convert.py"), ("ShiftNet.pth", "convert.py")]
+    assert not private
 
 
 def test_cpu_model_changes_no_process_setting(served):

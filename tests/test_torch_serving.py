@@ -119,7 +119,7 @@ def test_bicubic_route_matches_jax(scenes):
     scored on the forward's device, against JAX's get_sr_and_score."""
     b = scenes[0]
     fields = dict(name=b.names[0], lr=b.lrs[0, :1], hr=b.hrs[0], hr_map=b.hr_maps[0])
-    forward = evaluator._Forward(_hrnet(0), torch.device("cpu"))
+    forward = evaluator.Forward.plain(_hrnet(0), torch.device("cpu"))
     sr, score = evaluator.get_sr_and_score(ImageSet(**fields), forward, min_l=L,
                                            single_view_policy="bicubic")
     want_sr, want_score = jax_evaluator.get_sr_and_score(JaxImageSet(**fields), None, min_l=L,
@@ -189,11 +189,11 @@ def test_tta_and_ensemble_match_jax(mode, scenes):
     params = [_jax_params(m) for m in models]
     jax_net = JaxHRNet(config=NET)
     if mode == "ensemble":
-        port = evaluator._EnsembleForward(models, torch.device("cpu"))
+        port = evaluator.Forward.ensemble(models, torch.device("cpu"))
         ref = jax_evaluator._EnsembleForward(jax_net, params)
     else:
         n = int(mode[3:])
-        port = evaluator._TTAForward(models[0], torch.device("cpu"), transforms=n)
+        port = evaluator.Forward.tta(models[0], torch.device("cpu"), transforms=n)
         ref = jax_evaluator._TTAForward(jax_net, params[0], transforms=n)
     compared = 0
     for b in scenes:
@@ -206,10 +206,11 @@ def test_tta_and_ensemble_match_jax(mode, scenes):
                 srs_p = [m(x, a) for m in models]
                 srs_j = [jax_net.apply({"params": p}, b.lrs, b.alphas) for p in params]
             else:
-                srs_p = [dihedral_inv(models[0](dihedral_fwd(x, t), a), t) for t in port.elements]
+                elements = [t for _, t in port.members]
+                srs_p = [dihedral_inv(models[0](dihedral_fwd(x, t), a), t) for t in elements]
                 srs_j = [jax_dihedral.dihedral_inv(jax_net.apply(
                     {"params": params[0]}, jax_dihedral.dihedral_fwd(jnp.asarray(b.lrs), t),
-                    b.alphas), t) for t in port.elements]
+                    b.alphas), t) for t in elements]
         d_port, d_jax = _members_d(srs_p, srs_j)
         if np.abs(d_port - d_jax).max() <= 1e-6:
             np.testing.assert_allclose(got, np.asarray(want), rtol=SR_RTOL, atol=SR_ATOL)
@@ -220,11 +221,11 @@ def test_tta_and_ensemble_match_jax(mode, scenes):
 def test_tta_guards():
     model = _hrnet(0)
     with pytest.raises(ValueError, match="transforms"):
-        evaluator._TTAForward(model, torch.device("cpu"), transforms=3)
-    tta = evaluator._TTAForward(model, torch.device("cpu"), transforms=8)
+        evaluator.Forward.tta(model, torch.device("cpu"), transforms=3)
+    tta = evaluator.Forward.tta(model, torch.device("cpu"), transforms=8)
     with pytest.raises(ValueError, match="square"):
         tta(np.zeros((1, L, 16, 12), np.float32), np.ones((1, L), np.float32))
-    out = evaluator._TTAForward(model, torch.device("cpu"), transforms=4)(
+    out = evaluator.Forward.tta(model, torch.device("cpu"), transforms=4)(
         np.random.default_rng(0).random((1, L, 16, 12), dtype=np.float32), np.ones((1, L), np.float32))
     assert out.shape == (1, 48, 36) and np.isfinite(out).all()
 

@@ -19,7 +19,8 @@ from torch.profiler import ProfilerActivity, profile
 from highresnet_tpu_torch.config import load_config
 from highresnet_tpu_torch.data.collate import Batch
 from highresnet_tpu_torch.data.probav import ImageSet
-from highresnet_tpu_torch.eval.evaluator import Model, build_model
+from highresnet_tpu_torch.eval.evaluator import Model
+from highresnet_tpu_torch.models.network import build_network
 from highresnet_tpu_torch.train.epoch import run_train_epoch
 from highresnet_tpu_torch.train.state import create_train_state
 from highresnet_tpu_torch.train.step import build_train_step
@@ -50,7 +51,7 @@ def _config(min_l: int) -> dict:
 def _model(min_l: int) -> Model:
     config = _config(min_l)
     m = Model(config, CPU)
-    m.set_params(build_model(config, CPU).state_dict())
+    m.set_params(build_network(config, CPU).state_dict())
     return m
 
 

@@ -1780,11 +1780,12 @@ def phase_fills(fusion, fusion_dma, lanczos_fused) -> None:
 
 
 STAGES = tuple(FLAGSHIP["epochs"])
-# kernel launches per served scene: K1 once per fusion round of each forward,
-# K3 once per scene on the aligned and registered paths (one batched warp)
+# kernel launches per served scene: K1 once per fusion round of each forward
+# (x8 TTA's eight members are one stacked forward), K3 once per scene on the
+# aligned and registered paths (one batched warp)
 SERVE_MODES = {
     "plain": ([], {"pack": 1, "lanczos": 0}),
-    "tta8": (["--tta", "8"], {"pack": 8, "lanczos": 1}),
+    "tta8": (["--tta", "8"], {"pack": 1, "lanczos": 1}),
     "registered": (["--registered"], {"pack": 1, "lanczos": 1}),
     "ensemble": ([], {"pack": 2, "lanczos": 1}),
     "bicubic": (["--top-k", "1"], {"pack": 0, "lanczos": 0}),
@@ -1989,14 +1990,17 @@ def flagship_model(cfg: dict, runs: dict, mode: str, device: str):
 
 
 def tta_member_shifts(model, batch) -> np.ndarray:
-    """The PCC shifts (7, 2) that x8 TTA aligns its members by, on the model's device."""
+    """The PCC shifts (7, 2) that x8 TTA aligns its members by, on the model's
+    device: the members' SRs as its forward computes them, one stacked forward."""
+    from highresnet_tpu_torch.models.layers import stacked_members
     from highresnet_tpu_torch.ops.dihedral import dihedral_fwd, dihedral_inv
     from highresnet_tpu_torch.registration.search import pcc_align_batch
 
     x = torch.from_numpy(batch.lrs).to(model.device)
     a = torch.from_numpy(batch.alphas).to(model.device)
-    with torch.inference_mode():
-        srs = [dihedral_inv(model.hrnet(dihedral_fwd(x, t), a), t) for t in range(8)]
+    with torch.inference_mode(), stacked_members(8):
+        out = model.hrnet(torch.cat([dihedral_fwd(x, t) for t in range(8)]), a.repeat(8, 1))
+        srs = [dihedral_inv(sr, t) for t, sr in enumerate(out.split(x.shape[0]))]
         return pcc_align_batch(srs[0].repeat(7, 1, 1), torch.cat(srs[1:]))[1].cpu().numpy()
 
 

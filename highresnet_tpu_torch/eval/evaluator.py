@@ -25,6 +25,7 @@ Two faults of the JAX evaluator are not carried over (ROADMAP hazard H5):
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 import warnings
@@ -46,6 +47,7 @@ from highresnet_tpu_torch.data import (
     train_val_split,
 )
 from highresnet_tpu_torch.models.convert import SHIFTNET_NAME, load_weights
+from highresnet_tpu_torch.models.layers import stacked_members
 from highresnet_tpu_torch.models.network import build_network, weights_file, with_shiftnet
 from highresnet_tpu_torch.models.shiftnet import ShiftNet, apply_shifts, register_views
 from highresnet_tpu_torch.ops.dihedral import SAFE_SUBGROUP, dihedral_fwd, dihedral_inv
@@ -100,7 +102,17 @@ class Forward:
       stack, the symmetry undone on its output. ``transforms=8`` needs
       square inputs; 4 uses the shape-safe subgroup.
 
-    Several members are averaged, each in its ``serve.transform`` span. With
+    Several members are averaged. Consecutive members that share one model
+    object (TTA's) run as forwards over their inputs stacked along the batch
+    axis, each in its ``serve.stack`` span: for K such members and a batch of
+    B, max(1, K // B) members a forward, so a forward holds at most max(B, K)
+    scenes: one batch-8 forward for an x8 TTA scene. Every caller sends one
+    scene a call; B > 1 has no measured caller, and the rule only keeps its
+    memory to that of K scenes. Inside a stacked forward a conv with fewer
+    than 8 samples a member runs once a member
+    (``models.layers.stacked_members``), so each member's SR has the bits of
+    its own forward. A member with a model of its own (an ensemble's) runs
+    alone, in its ``serve.transform`` span. With
     ``register`` (default) each SR is first PCC-aligned to the first
     member's: independently trained models settle on output frames O(1 px)
     apart, and one model's output offset is not equivariant under the
@@ -137,6 +149,24 @@ class Forward:
                 a: torch.Tensor) -> torch.Tensor:
         return model(x, a) if t is None else dihedral_inv(model(dihedral_fwd(x, t), a), t)
 
+    def _forwards(self, x: torch.Tensor, a: torch.Tensor) -> list:
+        """Every member's SR, in member order (the class notes)."""
+        srs = []
+        for _, run in itertools.groupby(self.members, key=lambda member: id(member[0])):
+            run = list(run)
+            if len(run) == 1:
+                with span("serve.transform"):
+                    srs.append(self._member(*run[0], x, a))
+                continue
+            model, size = run[0][0], max(1, len(run) // x.shape[0])
+            for i in range(0, len(run), size):
+                ts = [t for _, t in run[i:i + size]]
+                with span("serve.stack"), stacked_members(len(ts)):
+                    xs = torch.cat([x if t is None else dihedral_fwd(x, t) for t in ts])
+                    out = model(xs, a.repeat(len(ts), 1)).split(x.shape[0])
+                    srs += [sr if t is None else dihedral_inv(sr, t) for sr, t in zip(out, ts)]
+        return srs
+
     @span("serve.call")
     def __call__(self, lrs, alphas):
         if (lrs.shape[-2] != lrs.shape[-1]
@@ -152,11 +182,7 @@ class Forward:
             if len(self.members) == 1:
                 sr = self._member(*self.members[0], x, a)
             else:
-                srs = []
-                for model, t in self.members:
-                    with span("serve.transform"):
-                        srs.append(self._member(model, t, x, a))
-                sr = _register_and_average(srs, self.register)
+                sr = _register_and_average(self._forwards(x, a), self.register)
             with span("serve.to_host"):
                 return sr.cpu().numpy() if self.host else sr
 

@@ -9,10 +9,15 @@ inputs ``.to`` returns the parameter itself: no copy, no extra graph node.
 
 ``lecun_normal_`` draws a kernel as flax's default ``lecun_normal`` does,
 the one initialiser of the port's HRNet, ShiftNet and seeded VGG.
+
+Inside ``stacked_members(k)`` the convs take their input as ``k`` members'
+equal batches stacked on the batch axis, and give each member the bits of
+its own forward (below).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -35,17 +40,51 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator)
                                  generator=generator)
 
 
+# A forward over K members' inputs stacked on the batch axis (x8 TTA in
+# ``eval.evaluator.Forward``) must give each member the bits of its own
+# forward: the 1/100 px PCC alignment that follows can turn one ulp of a
+# member into a shift of a step. cuDNN picks a conv's algorithm by its batch.
+# From MEMBER_BATCH samples a member up, the stacked call runs the algorithm
+# of a member's own call and each sample's arithmetic is the same; under it
+# cuDNN runs other algorithms, so such a conv runs once a member. On the H100
+# those small calls are also the fast ones (timings: PERF.md §6), and
+# ``tests/test_torch_cuda.py`` holds the stacked TTA to the member loop bit
+# for bit at the flagship shape.
+MEMBER_BATCH = 8
+_members = 1
+
+
+@contextlib.contextmanager
+def stacked_members(k: int):
+    """Inside, the convs of this module take their input as ``k`` members'
+    equal batches, stacked (above)."""
+    global _members
+    outer, _members = _members, k
+    try:
+        yield
+    finally:
+        _members = outer
+
+
+def _by_member(conv, x: torch.Tensor) -> torch.Tensor:
+    size = x.shape[0] // _members
+    if _members == 1 or size >= MEMBER_BATCH:
+        return conv(x)
+    return torch.cat([conv(part) for part in x.split(size)])
+
+
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        return _by_member(lambda part: self._conv_forward(part, w, b), x)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation,
-        )
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        return _by_member(lambda part: F.conv_transpose2d(
+            part, w, b, self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation), x)
 
 
 class PReLU(nn.PReLU):

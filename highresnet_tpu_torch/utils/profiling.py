@@ -33,10 +33,12 @@ such a span has host time alone). Nothing in a span waits for the card;
 
 - serving entry (``eval/evaluator.py``): ``serve.scene`` (one scene through
   ``get_sr_and_score``), ``serve.collate``, ``serve.call`` (a forward's
-  ``__call__``), ``serve.to_device``, ``serve.transform`` (one TTA
-  element's or ensemble member's forward), ``serve.align`` (the PCC
-  alignment and the mean), ``serve.to_host``, ``serve.range_check`` (the
-  range check and the score, once the SR is on the host);
+  ``__call__``), ``serve.to_device``, ``serve.stack`` (one forward of
+  several TTA elements stacked along the batch axis, the dihedral
+  transforms and their inverses included), ``serve.transform`` (one
+  ensemble member's forward), ``serve.align`` (the PCC alignment and the
+  mean), ``serve.to_host``, ``serve.range_check`` (the range check and the
+  score, once the SR is on the host);
 - model stages (``models/hrnet.py``): ``hrnet.encode``, ``hrnet.fuse``,
   ``hrnet.fuse.round`` (one pairwise round), ``hrnet.decode``; RAMS's
   (``models/rams.py``): ``rams.features``, ``rams.reduce``,

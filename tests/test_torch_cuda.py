@@ -1,6 +1,7 @@
 """The port's tests that need an NVIDIA GPU: its four CUDA kernels against
 their plain versions, the profiler's view of their wrappers (no NaN fill of
-the output, one kernel for the warp's forward), and a GPU training run that
+the output, one kernel for the warp's forward), x8 TTA's stacked forward
+against its members run one at a time, and a GPU training run that
 repeats, and resumes, bit for bit. Every test skips without a card.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on a
@@ -176,6 +177,39 @@ def test_lanczos_shift_forward_is_one_kernel(deterministic):
     shift = (torch.rand((8, 2), device=cuda) * 6 - 3).requires_grad_()
     ops = _device_ops(lambda: lanczos_fused.LanczosShift.apply(img, shift))
     assert len(ops) == 1 and "lanczos_shift_kernel" in ops[0], ops
+
+
+@pytest.mark.cuda
+def test_stacked_tta_equals_member_loop_bit_for_bit(cuda):
+    """x8 registered TTA at the flagship's serving shape (64 channels, 16
+    views of 128 px, 9-16 real): the stacked forward's SR equals, bit for
+    bit, that of the eight members run one forward each and aligned and
+    averaged the same way. A member off by one ulp can move its 1/100 px PCC
+    shift by a step (``models/layers.py``)."""
+    from pathlib import Path
+
+    from highresnet_tpu_torch.config import load_config
+    from highresnet_tpu_torch.eval.evaluator import Forward
+    from highresnet_tpu_torch.models.network import build_network
+    from highresnet_tpu_torch.ops.dihedral import dihedral_fwd, dihedral_inv
+    from highresnet_tpu_torch.registration.search import pcc_align_batch
+    from highresnet_tpu_torch.runtime import setup_device
+
+    setup_device(cuda)
+    config = load_config(str(Path(__file__).parents[1] / "configs" / "flagship.json"))
+    model = build_network(config, cuda, torch.Generator().manual_seed(0))
+    fwd = Forward.tta(model, cuda, 8, host=False)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for real in (16, 12, 9):
+        lrs = torch.rand((1, 16, 128, 128), generator=g, device=cuda)
+        lrs[:, real:] = 0.0
+        alphas = (torch.arange(16, device=cuda) < real).float()[None]
+        with torch.inference_mode():
+            got = fwd(lrs, alphas)
+            srs = [dihedral_inv(model(dihedral_fwd(lrs, t), alphas), t) for t in range(8)]
+            aligned, _ = pcc_align_batch(srs[0].repeat(7, 1, 1), torch.cat(srs[1:]))
+            want = torch.stack([srs[0], *aligned.split(1)]).mean(dim=0)
+        assert torch.equal(got, want), real
 
 
 def _final_state(run_dir):

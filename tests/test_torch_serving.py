@@ -1,8 +1,9 @@
 """The port's serving extras against the JAX package on the same weights and
 scenes: JAX's cubic resize and the single-view bicubic route, the dihedral
 transforms, phase cross-correlation and PCC alignment, x4/x8 TTA and the
-two-member ensemble, and ShiftNet-registered scoring, on a port run dir and
-on a JAX run dir exported by ``scripts/export_torch_weights.py``. Small sizes: a
+two-member ensemble, TTA's stacked forwards against the member-by-member
+loop, and ShiftNet-registered scoring, on a port run dir and on a JAX run
+dir exported by ``scripts/export_torch_weights.py``. Small sizes: a
 one-residual-layer HRNet with 16 channels, 4 views of 16 px (SR 48 px),
 ShiftNet at register size 32."""
 
@@ -32,7 +33,7 @@ from highresnet_tpu_torch.data import (
     read_imageset,
 )
 from highresnet_tpu_torch.eval import evaluator
-from highresnet_tpu_torch.models import HRNet, ShiftNet
+from highresnet_tpu_torch.models import HRNet, ShiftNet, layers
 from highresnet_tpu_torch.ops.dihedral import SAFE_SUBGROUP, dihedral_fwd, dihedral_inv
 from highresnet_tpu_torch.ops.resize import resize_cubic
 from highresnet_tpu_torch.registration.search import _pcc, pcc_align_batch
@@ -228,6 +229,93 @@ def test_tta_guards():
     out = evaluator.Forward.tta(model, torch.device("cpu"), transforms=4)(
         np.random.default_rng(0).random((1, L, 16, 12), dtype=np.float32), np.ones((1, L), np.float32))
     assert out.shape == (1, 48, 36) and np.isfinite(out).all()
+
+
+# --- stacked members ------------------------------------------------------------
+
+STACK_ATOL = 1e-5
+# transforms, (B, H, W) of the LR stack, the batch sizes of the model calls
+STACK_CASES = {
+    "x8-square-b1": (8, (1, 16, 16), [8]),
+    "x4-nonsquare-b1": (4, (1, 16, 12), [4]),
+    "x8-b2": (8, (2, 16, 16), [8, 8]),
+    "x8-b8": (8, (8, 16, 16), [8] * 8),
+}
+
+
+def _batch_sizes(model):
+    """The batch size of every call of ``model``, as it is called."""
+    seen = []
+    model.register_forward_hook(lambda _, args, out: seen.append(args[0].shape[0]))
+    return seen
+
+
+def _member_loop(fwd, lrs, alphas):
+    """The oracle: each member a forward of its own, one after another, each
+    SR PCC-aligned to the first member's with ``register``, then the mean."""
+    x, a = torch.from_numpy(lrs), torch.from_numpy(alphas)
+    with torch.inference_mode():
+        srs = [m(x, a) if t is None else dihedral_inv(m(dihedral_fwd(x, t), a), t)
+               for m, t in fwd.members]
+        if fwd.register:
+            aligned, _ = pcc_align_batch(srs[0].repeat(len(srs) - 1, 1, 1), torch.cat(srs[1:]))
+            srs = [srs[0], *aligned.split(x.shape[0])]
+        return torch.stack(srs).mean(dim=0).numpy()
+
+
+@pytest.mark.parametrize("register", [True, False], ids=["register", "raw"])
+@pytest.mark.parametrize("case", STACK_CASES)
+def test_stacked_tta_equals_member_loop(case, register):
+    transforms, (b, h, w), calls = STACK_CASES[case]
+    model = _hrnet(5)
+    fwd = evaluator.Forward.tta(model, torch.device("cpu"), transforms=transforms,
+                                register=register)
+    rng = np.random.default_rng(7)
+    lrs = rng.random((b, L, h, w), dtype=np.float32)
+    alphas = np.ones((b, L), np.float32)
+    alphas[0, -1] = 0.0  # a padded view in the first scene alone: alphas follow their scene
+    seen = _batch_sizes(model)
+    got = fwd(lrs, alphas)
+    assert seen == calls
+    np.testing.assert_allclose(got, _member_loop(fwd, lrs, alphas), rtol=0, atol=STACK_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["conv", "deconv"])
+@pytest.mark.parametrize("members,size,calls", [
+    (1, 3, [3]),            # no stack: one call
+    (4, 3, [3, 3, 3, 3]),   # under 8 samples a member: once a member
+    (4, 8, [32]),           # 8 a member: one call over the stack
+    (2, 16, [32]),
+])
+def test_stacked_members_run_small_convs_once_a_member(kind, members, size, calls, monkeypatch):
+    torch.manual_seed(0)
+    if kind == "conv":
+        conv, name = layers.Conv2d(3, 5, 3, padding=1), "conv2d"
+    else:
+        conv, name = layers.ConvTranspose2d(3, 5, 3, stride=3), "conv_transpose2d"
+    x = torch.randn(members * size, 3, 6, 6)
+    with torch.inference_mode():
+        want = conv(x)
+        seen, real = [], getattr(torch.nn.functional, name)
+        monkeypatch.setattr(torch.nn.functional, name,
+                            lambda inp, *args: seen.append(inp.shape[0]) or real(inp, *args))
+        with layers.stacked_members(members):
+            got = conv(x)
+        assert seen == calls
+        conv(x)  # the context is left: one call again
+    assert seen == calls + [members * size]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_ensemble_runs_each_member_alone():
+    models = [_hrnet(1), _hrnet(2)]
+    fwd = evaluator.Forward.ensemble(models, torch.device("cpu"))
+    lrs = np.random.default_rng(8).random((2, L, 16, 16), dtype=np.float32)
+    alphas = np.ones((2, L), np.float32)
+    seen = [_batch_sizes(m) for m in models]
+    got = fwd(lrs, alphas)
+    assert seen == [[2], [2]]
+    np.testing.assert_allclose(got, _member_loop(fwd, lrs, alphas), rtol=0, atol=STACK_ATOL)
 
 
 # --- ShiftNet-registered scoring ------------------------------------------------

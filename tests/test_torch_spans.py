@@ -1,6 +1,6 @@
 """The program's spans (``utils/profiling.py``) on the CPU, over an archive
-``Model.forward``, an x8-TTA ``Model(imset)`` scene and two steps of
-``run_train_epoch``: with no profiler running, ``span`` hands out its shared
+``Model.forward``, an x8-TTA ``Model(imset)`` scene, a two-model
+``Forward.ensemble`` and two steps of ``run_train_epoch``: with no profiler running, ``span`` hands out its shared
 no-op context and nothing is recorded; under ``torch.profiler.profile`` each
 layer leaves its records, nested by parent and root, and the same spans as
 ``user_annotation`` events in the Chrome trace; and the SR and the loss are
@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from highresnet_tpu_torch.config import load_config
 from highresnet_tpu_torch.data.collate import Batch
 from highresnet_tpu_torch.data.probav import ImageSet
-from highresnet_tpu_torch.eval.evaluator import Model
+from highresnet_tpu_torch.eval.evaluator import Forward, Model
 from highresnet_tpu_torch.models.network import build_network
 from highresnet_tpu_torch.train.epoch import run_train_epoch
 from highresnet_tpu_torch.train.state import create_train_state
@@ -73,6 +73,17 @@ def tta8():
     return lambda: m(imset)[0]
 
 
+def ensemble():
+    """One 16-view scene through a registered two-model ensemble."""
+    config = _config(16)
+    models = [build_network(config, CPU, torch.Generator().manual_seed(s)) for s in (3, 4)]
+    fwd = Forward.ensemble(models, CPU)
+    rng = np.random.default_rng(3)
+    lrs = rng.random((1, 16, SIZE, SIZE), dtype=np.float32)
+    alphas = np.ones((1, 16), np.float32)
+    return lambda: fwd(lrs, alphas)
+
+
 def train():
     """Two registered steps with EMA from a fresh state: the epoch's loss and
     every parameter after them."""
@@ -93,7 +104,7 @@ def train():
     return run
 
 
-CALLS = {"archive": archive, "tta8": tta8, "train": train}
+CALLS = {"archive": archive, "tta8": tta8, "ensemble": ensemble, "train": train}
 
 
 def traced(run):
@@ -153,17 +164,27 @@ def test_tta_scene_records():
     _, recs = traced(tta8())
     scene, = by_name(recs, "serve.scene")
     call, = by_name(recs, "serve.call")
-    transforms = by_name(recs, "serve.transform")
-    assert len(transforms) == 8
-    assert all(t["parent"] == call["id"] for t in transforms)
-    encodes = by_name(recs, "hrnet.encode")
-    assert sorted(e["parent"] for e in encodes) == sorted(t["id"] for t in transforms)
-    assert len(by_name(recs, "hrnet.fuse")) == 8 and len(by_name(recs, "hrnet.fuse.round")) == 32
+    stack, = by_name(recs, "serve.stack")  # the eight members as one forward
+    assert stack["parent"] == call["id"] and not by_name(recs, "serve.transform")
+    for name in ("hrnet.encode", "hrnet.fuse", "hrnet.decode"):
+        assert len(by_name(recs, name)) == 1 and by_name(recs, name)[0]["parent"] == stack["id"]
+    assert len(by_name(recs, "hrnet.fuse.round")) == 4
     for name in ("serve.collate", "serve.call", "serve.range_check"):
         assert len(by_name(recs, name)) == 1 and by_name(recs, name)[0]["parent"] == scene["id"]
     for name in ("serve.to_device", "serve.align", "serve.to_host"):
         assert len(by_name(recs, name)) == 1 and by_name(recs, name)[0]["parent"] == call["id"]
     assert all(r["root"] == scene["id"] for r in recs)
+
+
+def test_ensemble_records():
+    _, recs = traced(ensemble())
+    call, = by_name(recs, "serve.call")
+    transforms = by_name(recs, "serve.transform")  # one forward a member
+    assert len(transforms) == 2 and not by_name(recs, "serve.stack")
+    assert all(t["parent"] == call["id"] for t in transforms)
+    encodes = by_name(recs, "hrnet.encode")
+    assert sorted(e["parent"] for e in encodes) == sorted(t["id"] for t in transforms)
+    assert len(by_name(recs, "serve.align")) == 1
 
 
 def test_train_step_records():

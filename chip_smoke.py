@@ -27,6 +27,16 @@ Phases (each prints lines; any failure raises, so the exit code is not 0):
      plain version (taps included) timed; then K3 at the serving shapes
      (7, 384, 384) (x8 TTA's alignment of one scene) and (1, 384, 384)
      (registered scoring), checked and timed the same way;
+  5b. [trmisr] TR-MISR's attention kernel (K5) against ``attend_ref`` at the
+     ``trmisr-archive`` shape (8 scenes x 128 x 128 pixels, 17 tokens, 8
+     heads of 64, 9-16 real views a scene) within 1e-6 of max |ref|, its
+     output in a NaN-filled block, and at small shapes over every head
+     width it is built for and 1, 6 and 32 tokens; gradients through
+     ``Attend`` equal to the plain version's; K5, the plain version and
+     SDPA's memory-efficient backend (a scene a call) timed at the cell's
+     shape; then ``Model.forward`` at configs/trmisr.json's full width on a
+     batch of 8 16-view 128 px scenes: 6 launches of K5 (one a block), a
+     finite SR, ms a batch;
   6. [predict] the predict CLI end to end on a synthetic 16-view 128 px
      dataset with the full-width network of configs/config.json and seeded
      random weights; K1's launches in that run; the first scene's SR and
@@ -185,7 +195,8 @@ Then one JSON line with the kernels (``launches`` sums the predict, train,
 dist (both ranks), view (every rank), options, lab, flagship, examples, bench and
 labs runs,
 the fused warm-start included; K3's entry also holds its serving shapes and
-frac_cpsnr's;
+frac_cpsnr's; K5's counts [trmisr]'s ``Model.forward`` alone, the one run of
+TR-MISR here;
 ``bound_ms`` is the least time the card could take for the timed call,
 from its bytes at 3.35 TB/s and its operations at the peak rate of their
 type; ``library_ms`` is one PyTorch call computing the same function, or
@@ -242,6 +253,8 @@ FUSED_WARMUP_STEPS = 20  # the warm-start's fused-warp branch, driven at warp_in
 SERVE_REPS = 3  # ms per scene: median over the val scenes, each served this many times
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 10  # kernel times: calls per CUDA graph, replays timed
 HOST_CALLS = 200  # host time of an allocation: calls timed
+TRMISR = dict(batch=8, views=16, size=128, heads=8, head_dim=64)  # the trmisr-archive cell
+ATTEND_RTOL = 1e-6  # K5 vs attend_ref: max |diff| / max |ref|, the same f32 sums in other orders
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
@@ -609,6 +622,127 @@ def phase_warp(lanczos_fused, card: str) -> dict:
                                "bound_ms": s_bound, "bound_by": s_by}
     return {"max_abs_err": max_err, "ms": ms["K3"], "call_ms": call_ms, "plain_ms": ms["plain"],
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "serving": serving}
+
+
+def attend_inputs(g: torch.Generator, b: int, p: int, n: int, heads: int, d: int):
+    """qkv (b, p, n, 3·heads·d) and the key bias (b, n) of scenes with
+    1 + (n - 1) // 2 to n - 1 real views (9 to 16 at n 17, as the cell's
+    traffic); token 0 always counts."""
+    qkv = torch.randn(b, p, n, 3 * heads * d, generator=g, device="cuda")
+    real = torch.randint(min(1 + (n - 1) // 2, n - 1), n, (b, 1), generator=g, device="cuda")
+    ok = torch.arange(n, device="cuda")[None, :] <= real
+    return qkv, torch.zeros(b, n, device="cuda").masked_fill(~ok, -math.inf)
+
+
+def sdpa_attend(qkv: torch.Tensor, key_bias: torch.Tensor, heads: int) -> torch.Tensor:
+    """The same function through SDPA's memory-efficient backend, a scene a
+    call (its flash backend takes no float32)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, p, n, _ = qkv.shape
+    q, k, v = (t.transpose(-2, -3) for t in qkv.unflatten(-1, (3, heads, -1)).unbind(-3))
+    outs = []
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        for i in range(b):
+            mask = key_bias[i].expand(p, heads, n, n).contiguous()
+            outs.append(F.scaled_dot_product_attention(q[i], k[i], v[i], attn_mask=mask))
+    return torch.stack(outs).transpose(-2, -3).flatten(-2)
+
+
+def attend_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_trmisr(card: str) -> dict:
+    """K5 against attend_ref at the trmisr-archive shape and at small ones,
+    its output in a NaN-filled block; Attend's gradient; K5, the plain version
+    and SDPA timed at the cell's shape; Model.forward at full width with K5
+    once a block."""
+    from highresnet_tpu_torch import load_config
+    from highresnet_tpu_torch.eval.evaluator import Model
+    from highresnet_tpu_torch.models.network import build_network
+    from highresnet_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    b, p, n, heads, d = (TRMISR["batch"], TRMISR["size"] ** 2, TRMISR["views"] + 1,
+                         TRMISR["heads"], TRMISR["head_dim"])
+    cases = [(b, p, n, heads, d)] + [(2, 300, t, 3, w) for w in attention.HEAD_DIMS
+                                     for t in (1, 6, 17, attention.MAX_TOKENS)]
+    worst = 0.0
+    for shape in cases:
+        qkv, bias = attend_inputs(g, *shape[:3], *shape[3:])
+        address = poison((*shape[:3], shape[3] * shape[4]), torch.float32)
+        got = attention.attend_cuda(qkv, bias, shape[3])
+        check_poisoned(got, address, f"attend_cuda at {shape}")
+        gap = attend_gap(got, attention.attend_ref(qkv, bias, shape[3]))
+        if not gap < ATTEND_RTOL:
+            raise AssertionError(f"attend_cuda at {shape}: max |K5 - plain| / max |plain| {gap:.3g}")
+        worst = max(worst, gap)
+        print(f"[trmisr] K5 against attend_ref at (B, P, n, h, d) {shape}, output in a "
+              f"NaN-filled block: max |diff| / max |ref| {gap:.3g} (limit {ATTEND_RTOL:g})")
+        del qkv, got
+    torch.cuda.empty_cache()
+
+    qkv, bias = attend_inputs(g, 2, 300, n, heads, d)
+    x = qkv.clone().requires_grad_()
+    cot = torch.randn((2, 300, n, heads * d), generator=g, device="cuda")
+    (got,) = torch.autograd.grad(attention.attend(x, bias, heads), x, cot)
+    (want,) = torch.autograd.grad(attention.attend_ref(x, bias, heads), x, cot)
+    if not torch.equal(got, want):
+        raise AssertionError("Attend's backward differs from the plain version's gradient")
+    print("[trmisr] Attend gradient on the card == attend_ref's autograd: True")
+
+    qkv, bias = attend_inputs(g, b, p, n, heads, d)
+    moved = 4 * b * p * n * heads * d * 4  # q, k and v read, the heads' output written
+    flops = 4 * b * p * heads * n * n * d  # q kᵀ and w v
+    before = attention.LAUNCHES
+    with torch.inference_mode():
+        ms = graph_times_ms({"K5": lambda: attention.attend_cuda(qkv, bias, heads)}, calls=2)
+        ms.update(graph_times_ms({"plain": lambda: attention.attend_ref(qkv, bias, heads)},
+                                 calls=1, replays=5))
+        torch.cuda.empty_cache()
+        ms.update(graph_times_ms({"sdpa_mem_efficient": lambda: sdpa_attend(qkv, bias, heads)},
+                                 calls=1, replays=5))
+        torch.cuda.empty_cache()
+        call_ms = statistics.median(cuda_times_ms(lambda: attention.attend_cuda(qkv, bias, heads),
+                                                  10, 2))
+    attention.LAUNCHES = before
+    bound = bound_ms(moved, flops)
+    print(f"[trmisr] attention at (B, P, n, h, d) {(b, p, n, heads, d)} f32, {moved / 1e9:.2f} GB "
+          f"moved, {flops / 1e9:.1f} GFLOP; device time per call (CUDA graph, median of replays): "
+          + ", ".join(f"{name} {t:.4f} ms ({bound / t:.1%} of the bound)" for name, t in ms.items())
+          + f"; K5 one call with its host part {call_ms:.4f} ms (median of 10); bound "
+          f"{bound:.4f} ms; {card}")
+    del qkv, bias
+    torch.cuda.empty_cache()
+
+    config = load_config(str(REPO / "configs" / "trmisr.json"))
+    model = Model(config, "cuda")
+    model.set_params(build_network(config, "cpu", torch.Generator().manual_seed(31)).state_dict())
+    rng = np.random.default_rng(31)
+    lrs = rng.random((b, TRMISR["views"], TRMISR["size"], TRMISR["size"]), dtype=np.float32)
+    alphas = np.ones((b, TRMISR["views"]), dtype=np.float32)
+    alphas[:, 12:] = 0
+    model.forward(lrs, alphas)  # warm-up
+    attention.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sr = model.forward(lrs, alphas)
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    launches = attention.LAUNCHES
+    depth = config["network"]["transformer"]["depth"]
+    if launches != depth or not np.isfinite(sr).all():
+        raise AssertionError(f"[trmisr] Model.forward: {launches} K5 launches (want {depth}), "
+                             f"finite SR {np.isfinite(sr).all()}")
+    print(f"[trmisr] Model.forward TR-MISR f32 batch {b} x {TRMISR['views']} views x "
+          f"{TRMISR['size']}px, 12 real: {launches} K5 launches, SR {sr.shape} finite, "
+          f"{forward_ms:.1f} ms (host clock, numpy in and out); {card}")
+    del model
+    torch.cuda.empty_cache()
+    return {"max_rel_err": worst, "ms": ms["K5"], "call_ms": call_ms, "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": "bytes" if moved / HBM_BYTES_PER_S > flops / F32_FLOPS
+            else "flops", "library_ms": ms["sdpa_mem_efficient"], "launches": launches}
 
 
 def phase_predict(fusion, lanczos_fused, card: str) -> dict:
@@ -2891,6 +3025,7 @@ def main() -> None:
         "pack": phase_pack(fusion),
         "unpack": phase_unpack(fusion, card),
         "lanczos": phase_warp(lanczos_fused, card),
+        "attend": phase_trmisr(card),
     }
     predicted = phase_predict(fusion, lanczos_fused, card)
     phase_forward(card)
@@ -2937,6 +3072,9 @@ def main() -> None:
                      + labs[key]),
         **measured[key],
     } for key, (name, src, replaces) in sources.items()]
+    kernels.append({"name": "attend", "route": "cuda",
+                    "source": "highresnet_tpu_torch/csrc/attend.cu", "replaces": None,
+                    **measured["attend"]})  # K5 launches in [trmisr]'s forward alone
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

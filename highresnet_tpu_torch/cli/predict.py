@@ -1,4 +1,4 @@
-"""Evaluate HRNet (or RAMS) weights and/or produce a Kelvin submission archive.
+"""Evaluate HRNet (or RAMS, or TR-MISR) weights and/or produce a Kelvin submission archive.
 
 Usage:
     python -m highresnet_tpu_torch.cli.predict --config configs/config.json \
@@ -8,7 +8,8 @@ Usage:
 
 The flags of ``highresnet_tpu.cli.predict`` plus ``--device``. Under
 ``network.arch: "rams"`` the checkpoint is ``RAMS.pth``, served plain (no
-``--tta``, ``--registered`` or ensembles). A JAX run
+``--tta``, ``--registered`` or ensembles); under ``network.arch: "trmisr"``
+(``configs/trmisr.json``) it is ``TRNet.pth``, served every way. A JAX run
 directory (Orbax ``best/``) gets its ``HRNet.pth`` and, for
 ``--registered``, its ``ShiftNet.pth`` from ``scripts/export_torch_weights.py``.
 """

@@ -1,4 +1,4 @@
-"""Train HRNet + ShiftNet, or RAMS, for multi-frame super-resolution.
+"""Train HRNet + ShiftNet, TR-MISR + ShiftNet, or RAMS, for multi-frame super-resolution.
 
 Usage:
     python -m highresnet_tpu_torch.cli.train --config configs/config.json \
@@ -9,7 +9,9 @@ creates or resumes a run directory, --max-steps stops after N optimizer
 steps. The run directory's ``best/HRNet.pth`` serves through
 ``highresnet_tpu_torch.cli.predict --checkpoint <run dir>``; under
 ``network.arch: "rams"`` (``configs/rams.json``) the run trains RAMS alone
-with its cL1 loss and keeps ``best/RAMS.pth``.
+with its cL1 loss and keeps ``best/RAMS.pth``; under ``network.arch:
+"trmisr"`` (``configs/trmisr.json``) it trains TR-MISR with HRNet's
+registered loss and keeps ``best/TRNet.pth`` beside ``best/ShiftNet.pth``.
 
 Data parallelism runs one process per card, each on its shard of the
 global batch ``training.batch_size`` (which the world size must divide):

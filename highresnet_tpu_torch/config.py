@@ -8,10 +8,15 @@ of the reference's config/config.json (paths / network / training) so
 existing configs drop in unchanged (BASELINE.json requires API compat).
 
 ``network.arch`` names the SR network: ``"hrnet"`` (the default, whose
-settings are ``DEFAULT_CONFIG``'s network section) or ``"rams"``
+settings are ``DEFAULT_CONFIG``'s network section), ``"rams"``
 (``models/rams.py``), whose settings are ``network.rams`` over
-``RAMS_DEFAULTS``. Neither key is in ``DEFAULT_CONFIG``, which stays the
-JAX package's. An ``assumed`` list in a section documents the values of a
+``RAMS_DEFAULTS``, or ``"trmisr"`` (``models/trmisr.py``), which takes
+HRNet's ``network.encoder`` and whose transformer fusion and sub-pixel
+decoder are ``network.transformer`` over ``TRANSFORMER_DEFAULTS``: the token
+width ``dim`` (the encoder's ``channel_size``), ``depth`` blocks, ``heads``
+heads of ``head_dim``, the MLP's hidden width ``mlp_dim``, the ``dropout``
+rate of training, and the decoder's conv ``decoder_kernel`` and ``scale``.
+None of these keys is in ``DEFAULT_CONFIG``, which stays the JAX package's. An ``assumed`` list in a section documents the values of a
 configuration that its published source does not confirm.
 """
 
@@ -154,7 +159,7 @@ DEFAULT_CONFIG: Dict[str, Any] = {
 }
 
 
-ARCHS = ("hrnet", "rams")
+ARCHS = ("hrnet", "rams", "trmisr")
 
 # RAMS's published widths (Salvetti et al. 2020): filters F, kernel k, frames
 # T, the attention gates' reduction r, residual feature-attention blocks N
@@ -164,6 +169,21 @@ RAMS_DEFAULTS: Dict[str, Any] = {
     "views": 9,
     "reduction": 8,
     "blocks": 12,
+    "scale": 3,
+}
+
+
+# TR-MISR's published transformer (An et al. 2022): token width, blocks, heads
+# and their width (vit-pytorch's default), the MLP's hidden width, dropout;
+# then its sub-pixel decoder's conv kernel and scale
+TRANSFORMER_DEFAULTS: Dict[str, Any] = {
+    "dim": 64,
+    "depth": 6,
+    "heads": 8,
+    "head_dim": 64,
+    "mlp_dim": 128,
+    "dropout": 0.1,
+    "decoder_kernel": 3,
     "scale": 3,
 }
 
@@ -179,6 +199,11 @@ def network_arch(config: Dict[str, Any]) -> str:
 def rams_settings(network: Dict[str, Any]) -> Dict[str, Any]:
     """``network.rams`` over ``RAMS_DEFAULTS``."""
     return {**RAMS_DEFAULTS, **network.get("rams", {})}
+
+
+def transformer_settings(network: Dict[str, Any]) -> Dict[str, Any]:
+    """``network.transformer`` over ``TRANSFORMER_DEFAULTS``."""
+    return {**TRANSFORMER_DEFAULTS, **network.get("transformer", {})}
 
 
 # Registration-toolkit config (the reference's root config.json schema:

@@ -12,8 +12,9 @@ the model's device: the SR forwards, the PCC alignment (its warp is the
 Lanczos kernel K3 on CUDA), the registered warp (K3) and the shift-search
 cPSNR.
 
-The SR network is the one ``network.arch`` names (``models/network.py``).
-A network that comes without ShiftNet (RAMS) serves plain
+The SR network is the one ``network.arch`` names (``models/network.py``):
+HRNet and TR-MISR serve every path. A network that comes without ShiftNet
+(RAMS) serves plain
 (``load_checkpoint`` or ``set_params``, then ``forward`` or ``__call__``);
 TTA, ensembles and ShiftNet-registered scoring refuse it.
 
@@ -286,8 +287,8 @@ def get_sr_and_score(
 
 
 def load_model(config: Mapping[str, Any], checkpoint: str, device="cuda") -> nn.Module:
-    """Build the SR network and load its weights, ``HRNet.pth`` or
-    ``RAMS.pth`` (a file, or a directory holding it).
+    """Build the SR network and load its weights, ``HRNet.pth``, ``RAMS.pth``
+    or ``TRNet.pth`` (a file, or a directory holding it).
 
     A CUDA device that is missing raises before the checkpoint is read."""
     device = resolve_device(device)
@@ -354,7 +355,7 @@ class Model:
     def __init__(self, config: Dict[str, Any], device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
-        self.hrnet: Optional[nn.Module] = None  # the SR network, HRNet or RAMS
+        self.hrnet: Optional[nn.Module] = None  # the SR network: HRNet, RAMS or TR-MISR
         self.forward: Optional[Forward] = None
         self.registration: Optional[ShiftNet] = None  # load_checkpoint_with_shiftnet
 
@@ -364,11 +365,12 @@ class Model:
 
     def _hrnet_only(self, what: str) -> None:
         if not with_shiftnet(self.config):
-            raise ValueError(f"{what} serves HRNet only; RAMS serves plain "
+            raise ValueError(f"{what} serves HRNet and TR-MISR only; RAMS serves plain "
                              "(load_checkpoint or set_params, then forward or __call__)")
 
     def load_checkpoint(self, checkpoint: str):
-        """Load ``HRNet.pth`` or ``RAMS.pth`` (a file, or a run directory holding it)."""
+        """Load the network's weights file (``models.network.weights_file``; a
+        file, or a run directory holding it)."""
         self.hrnet = load_model(self.config, checkpoint, self.device)
         self.forward = Forward.plain(self.hrnet, self.device)
 
@@ -379,8 +381,9 @@ class Model:
         self.forward = Forward.plain(self.hrnet, self.device)
 
     def load_checkpoint_with_shiftnet(self, checkpoint: str):
-        """Also load ShiftNet for registered scoring: HRNet from
-        ``best/HRNet.pth`` at ``training.compute_dtype``, ShiftNet from
+        """Also load ShiftNet for registered scoring: the network from its
+        weights file (HRNet's ``best/HRNet.pth`` at ``training.compute_dtype``;
+        TR-MISR's ``best/TRNet.pth``), ShiftNet from
         ``best/ShiftNet.pth`` at ``register_size``, in eval mode. Takes a run
         directory of the port's cli.train or a directory holding both files."""
         self._hrnet_only("ShiftNet-registered scoring")

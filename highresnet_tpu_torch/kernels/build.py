@@ -10,7 +10,8 @@ unchanged one is reused. It builds at first use; nothing here runs at
 import time, so machines without ``nvcc`` can import the package.
 
 Pointers and the stream cross the boundary as ``c_void_p``, sizes as
-``c_int64``; every exported function returns ``cudaError_t`` as an int.
+``c_int64`` and a scale as ``c_float``; every exported function returns
+``cudaError_t`` as an int.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ COMPILE_FLAGS = (
 )
 NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")  # the link step's flags
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # exported symbol -> ctypes argtypes
 SIGNATURES = {
     # (x, out, batch, views, block_bytes, stream)
@@ -43,6 +44,8 @@ SIGNATURES = {
     "hrn_unpack_pairs": (_P, _P, _I64, _I64, _I64, _P),
     # (img, shift, out, batch, h, w, img_stride, stream)
     "hrn_lanczos_shift": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    # (qkv, bias, out, sequences, per_scene, n, heads, head_dim, scale, stream)
+    "hrn_attend": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _F32, _P),
 }
 
 _lib = None

@@ -75,7 +75,8 @@ OTHER = "other"
 # product before the elementwise keys; the generic reduction keys after the
 # conv keys, as cuDNN's FFT kernels take a cudnn::reduced_divisor
 RULES = (
-    (PORT, ("hrn_", "pack_pairs_kernel", "pack_pairs_dma_kernel", "lanczos_shift_kernel")),
+    (PORT, ("hrn_", "pack_pairs_kernel", "pack_pairs_dma_kernel", "lanczos_shift_kernel",
+            "attend_kernel")),
     ("optimizer (multi_tensor_apply)", ("multi_tensor_apply",)),
     ("copies and memsets", ("memcpy", "memset", "copy", "fillfunctor", "flip", "nchwtonhwc",
                             "nhwctonchw", "transpose")),

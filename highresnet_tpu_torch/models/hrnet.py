@@ -164,7 +164,9 @@ class Decoder(nn.Module):
 
 
 class HRNet(nn.Module):
-    """forward(lrs (B, L, H, W), alphas (B, L)) -> (B, 3H, 3W) float32 SR.
+    """forward(lrs (B, L, H, W), alphas (B, L)[, generator]) -> (B, 3H, 3W)
+    float32 SR. HRNet draws no dropout masks: ``generator``, which every SR
+    network's forward takes (``models/network.py``), goes unused.
 
     The anchor frame is the lower median of the first min(9, L) views,
     stacked with every view as a second input channel.
@@ -236,7 +238,8 @@ class HRNet(nn.Module):
             elif isinstance(m, nn.PReLU):
                 m.weight.fill_(0.25)
 
-    def forward(self, lrs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    def forward(self, lrs: torch.Tensor, alphas: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         b, l, h, w = lrs.shape
         group = self.view_group if self.training else None
         with span("hrnet.encode"):

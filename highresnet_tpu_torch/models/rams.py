@@ -175,7 +175,8 @@ class RAMS(nn.Module):
         if group is not None:
             raise ValueError("RAMS does not split its views over a view axis (training.mesh)")
 
-    def forward(self, lrs: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    def forward(self, lrs: torch.Tensor, alphas: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         with span("rams.features"):
             x = (fill_views(lrs.float(), alphas, self.views) - MEAN) / STD  # (B, T, H, W)
             z0 = self.head(x[:, None])

@@ -13,7 +13,7 @@ The policy, by what the step can observe:
 - a step runs eagerly where it cannot be captured: off CUDA, and in a
   synced data-parallel step (its collectives run between the phases);
 - a step's key is its inputs' shapes, dtypes and device, the mode its
-  state sets (the clip, ShiftNet's dropout rate) and the identity of the
+  state sets (the clip, ShiftNet's dropout rate and TR-MISR's) and the identity of the
   dropout generator. The rest of the mode (the registered arm, the EMA,
   the range penalty) is fixed when the step function is built, and each
   step function keeps its own graphs;
@@ -48,10 +48,11 @@ What a replay relies on:
   and Adam is ``capturable`` (``train/state.py``);
 - the dropout generator is registered with the forward's graph, so each
   replay advances it as the eager step does and a resumed run redraws the
-  same masks;
-- the kernels K1-K3 launch on the current stream, and each replay adds to
-  ``ops.fusion.LAUNCHES`` and ``ops.lanczos_fused.LAUNCHES`` the launches
-  its capture counted (the capture itself counts none).
+  same masks (ShiftNet's and, for TR-MISR, the SR network's);
+- the kernels K1-K3 and K5 launch on the current stream, and each replay
+  adds to ``ops.fusion.LAUNCHES``, ``ops.lanczos_fused.LAUNCHES`` and
+  ``ops.attention.LAUNCHES`` the launches its capture counted (the capture
+  itself counts none).
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tupl
 
 import torch
 
-from highresnet_tpu_torch.ops import fusion, lanczos_fused
+from highresnet_tpu_torch.ops import attention, fusion, lanczos_fused
 from highresnet_tpu_torch.utils.profiling import span
 
 EAGER, CAPTURE, REPLAY = "eager", "capture", "replay"
@@ -95,14 +96,16 @@ def decide(eligible: bool, warm: bool, seen: bool, captured: bool, full: bool) -
     return EAGER
 
 
-def launch_counts() -> Tuple[int, int, int]:
-    return fusion.LAUNCHES["pack"], fusion.LAUNCHES["unpack"], lanczos_fused.LAUNCHES
+def launch_counts() -> Tuple[int, int, int, int]:
+    return (fusion.LAUNCHES["pack"], fusion.LAUNCHES["unpack"], lanczos_fused.LAUNCHES,
+            attention.LAUNCHES)
 
 
 def add_launches(counts: Sequence[int]) -> None:
     fusion.LAUNCHES["pack"] += counts[0]
     fusion.LAUNCHES["unpack"] += counts[1]
     lanczos_fused.LAUNCHES += counts[2]
+    attention.LAUNCHES += counts[3]
 
 
 @dataclass

@@ -69,7 +69,7 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
 
 @dataclass
 class TrainState:
-    hrnet: HRNet  # the SR network: HRNet, or RAMS
+    hrnet: HRNet  # the SR network: HRNet, RAMS or TR-MISR
     shiftnet: Optional[ShiftNet]  # None for RAMS
     optimizer: torch.optim.Adam
     generator: torch.Generator  # dropout masks, on the training device

@@ -12,7 +12,9 @@ The counterpart of ``highresnet_tpu/train/step.py`` (no mesh):
           + lambda · mean(shifts)² [+ range_penalty · mean overflow],
      one Adam step over both models, then the EMA update.
 
-RAMS (``network.arch: "rams"``) trains with its own loss and no ShiftNet:
+TR-MISR (``network.arch: "trmisr"``) takes HRNet's place in step 1 and
+draws its dropout masks from the state's dropout generator, ahead of
+ShiftNet's. RAMS (``network.arch: "rams"``) trains with its own loss and no ShiftNet:
 ``training.loss: "cL1"`` with ``register: false`` replaces steps 2-4 with
 the batch mean of ``ops.losses.cl1_loss`` on the raw SR (its shift
 search over the ``crop`` border), and Adam runs over RAMS alone.
@@ -123,7 +125,7 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
 
     def loss_fn(state: TrainState, lrs, alphas, hrs, hr_maps):
         with span("train.step.forward"):
-            srs = state.hrnet(lrs, alphas)
+            srs = state.hrnet(lrs, alphas, state.generator)
         if register:
             with span("train.step.register"):
                 warped, thetas = register_and_warp(
@@ -202,7 +204,8 @@ def build_train_step(config: Dict[str, Any], layout: Optional[DataParallel] = No
         batch = (lrs, alphas, hrs, hr_maps)
         metrics = None
         if eligible(lrs.device, synced):  # through CUDA graphs (train/graphs.py)
-            mode = (state.grad_clip_norm, None if state.shiftnet is None else state.shiftnet.dropout)
+            mode = (state.grad_clip_norm, None if state.shiftnet is None else state.shiftnet.dropout,
+                    getattr(state.hrnet, "dropout", None))
             warm = (len(state.optimizer.state) == len(params)
                     and all(p.grad is not None for p in params))
             metrics = graphed(

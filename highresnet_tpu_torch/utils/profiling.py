@@ -43,7 +43,10 @@ such a span has host time alone). Nothing in a span waits for the card;
   ``hrnet.fuse.round`` (one pairwise round), ``hrnet.decode``; RAMS's
   (``models/rams.py``): ``rams.features``, ``rams.reduce``,
   ``rams.upscale``, ``rams.global``, and ``rams.gate`` (each attention
-  gate, nested in those);
+  gate, nested in those); TR-MISR's (``models/trmisr.py``):
+  ``trmisr.encode``, ``trmisr.transformer`` (the tokens, every block, the
+  final norm and the token's row), ``trmisr.attend`` (one a block, nested:
+  from q, k and v to the heads' output, before W_o), ``trmisr.decode``;
 - train loop (``train/epoch.py``): ``train.epoch``, ``train.feed`` (a
   batch's host-to-device copies), ``train.step``, ``train.readback`` (the
   epoch's one read of its metrics);

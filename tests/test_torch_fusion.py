@@ -92,6 +92,7 @@ def test_dispatch_sends_cpu_tensors_to_the_plain_version():
 
 def test_kernel_source_and_build_target_sm90a(tmp_path, monkeypatch):
     replaced = {
+        "attend.cu": "No TPU kernel stands behind it",  # K5: TR-MISR's attention core
         "pack_pairs.cu": "fusion_pallas.py::_pack_kernel",
         "pack_pairs_dma.cu": "fusion_lab4.py::pack_dma",
         "unpack_pairs.cu": "fusion_pallas.py::_unpack_kernel",

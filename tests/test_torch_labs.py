@@ -271,7 +271,7 @@ def test_kernel_names_map_to_their_categories():
     # every kernel of the port's CUDA sources, as the trace names it
     globals_ = [re.search(r"\)\s*(\w+)\(", m).group(1) for src in sorted(CSRC.glob("*.cu"))
                 for m in re.findall(r"__global__ void[^(]*\([^)]*\)\s*\w+\(", src.read_text())]
-    assert len(globals_) == 4, globals_
+    assert len(globals_) == 5, globals_
     for name in globals_:
         traced = f"(anonymous namespace)::{name}(unsigned char const*, float*, long)"
         assert trace_train_step.categorize(traced) == trace_train_step.PORT, name

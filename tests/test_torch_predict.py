@@ -34,6 +34,7 @@ NEW_MODULES = ("train.pretrain", "ops.resize", "ops.dihedral", "registration.sea
                "cli.pack_dataset", "utils.profiling", "utils.flops", "exp.harness", "dryrun",
                "bench", "labs.common",  # with the perf labs below
                "models.rams", "models.network",  # RAMS, and the network a config names
+               "models.trmisr", "ops.attention",  # TR-MISR and its attention core
                *(f"labs.{name}" for name in (
                    "fusion_lab", "fusion_lab2", "fusion_lab3", "bench_breakdown",
                    "trace_train_step")),
